@@ -3,23 +3,34 @@
 
     python3 chip_smoke.py
 
-Drives the port's verifier (go_curdleproofs_tpu_torch) on the card:
+Drives the port (go_curdleproofs_tpu_torch) on the card:
 
-  1. environment: versions, the card, its power limit, host transcript lib;
-  2. build: compiles the CUDA kernels from ops/csrc/ with nvcc;
-  3. each kernel against its plain torch version on the card, at the shapes
-     the verifier gives it, compared exactly by value, with timings;
-  4. main path: ELL=124 CRS, both proofs of tests/fixture_whisk_ell124.json
-     verified with launch counts, tampered proofs rejected, the golden
-     ell=12 Whisk proof and tracker proof accepted, cold/warm verify times.
+  1. environment: versions, the card, its power limit, whether the host C
+     library or the Python path serves the transcript;
+  2. build: compiles the CUDA kernels from ops/csrc/ with nvcc (one process
+     per source, started together) and the host C library with cc;
+  3. each of the six kernels against its plain torch version on the card, at
+     the shapes the verifier and the prover give it, compared exactly by
+     value (integers, tolerance 0), with timings and roofline bounds;
+  4. verifier path: ELL=124 CRS, both proofs of
+     tests/fixture_whisk_ell124.json verified with launch counts, tampered
+     proofs rejected, the golden ell=12 Whisk proof and tracker proof
+     accepted, cold/warm verify times;
+  5. prover path: the golden ell=12 Whisk proof, the golden ell=12 and
+     ell=60 shuffle proofs and the golden tracker proof regenerated from
+     their seeds and compared byte for byte with tests/golden_vectors.json;
+     then a proof at ELL=124 from the fixture's trackers, verified by the
+     port's verifier, a flipped byte rejected, cold/warm prove times and
+     launch counts per prove and per verify.
 
 Prints the kernel summary as one JSON line, then as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
 non-zero and no result line is printed. Without CUDA it exits non-zero.
-Imports no jax: JAX_COMPILATION_CACHE_DIR is cleared first, so the JAX
-package's __init__ does not try to import it.
+Imports neither jax nor the JAX package.
 """
 
+import hashlib
+import io
 import json
 import os
 import platform
@@ -29,14 +40,16 @@ import subprocess
 import sys
 import time
 
-os.environ.pop("JAX_COMPILATION_CACHE_DIR", None)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
-KERNEL_SOURCE = "go_curdleproofs_tpu_torch/ops/csrc/kernels.cu"
+CSRC = "go_curdleproofs_tpu_torch/ops/csrc/"
 REPLACES = {
+    "mont_mul": "go_curdleproofs_tpu/ops/rns_kernels.py:642",
+    "point_add": "go_curdleproofs_tpu/ops/rns_kernels.py:366",
+    "point_double": "go_curdleproofs_tpu/ops/rns_kernels.py:382",
     "pow_fixed": "go_curdleproofs_tpu/ops/rns_kernels.py:664",
     "windowed_combine": "go_curdleproofs_tpu/ops/rns_kernels.py:421",
     "msm_select_reduce": "go_curdleproofs_tpu/ops/rns_kernels.py:500",
@@ -44,6 +57,17 @@ REPLACES = {
 FIXTURE = os.path.join(ROOT, "tests", "fixture_whisk_ell124.json")
 GOLDEN = os.path.join(ROOT, "tests", "golden_vectors.json")
 SMS_FLIP_BYTE = 4520      # inside the same-multiscalar scalar x (4504-4535)
+PROVE_SEED = 0x5EED       # Rand seed of the ELL=124 prove
+
+# The card's peaks for the roofline bound (NVIDIA H100 SXM data sheet and
+# Hopper white paper): 3.35e12 bytes/s of HBM3; 67e12 float32 FLOP/s outside
+# the tensor cores = 33.5e12 multiply-adds/s on 128 FP32 lanes an SM, and an
+# SM has 64 INT32 lanes, so half that for a 32-bit integer multiply-add.
+HBM_BYTES_PER_S = 3.35e12
+INT32_MADS_PER_S = 16.75e12
+ELEM_BYTES = 48
+MADS_PER_PRODUCT = 2 * 12 * 12        # product and Montgomery reduction
+PRODUCTS_ADD, PRODUCTS_DOUBLE = 12, 8
 
 
 def check(cond: bool, what: str) -> None:
@@ -63,8 +87,32 @@ def cuda_ms(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
+def kernel_ms(fn, launches: int = 20) -> float:
+    """Device time of one fn() in ms: CUDA events around `launches` calls
+    after a warm-up call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def bound(n_bytes: float, products: float) -> dict:
+    """The least time the card could take: bytes over the memory rate
+    against multiply-adds over the int32 rate."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = products * MADS_PER_PRODUCT / INT32_MADS_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
 def phase_env(dev: torch.device) -> str:
-    from go_curdleproofs_tpu.utils import keccak, strobe
+    from go_curdleproofs_tpu_torch.utils import keccak, strobe
 
     print(f"python {platform.python_version()}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}")
@@ -75,8 +123,9 @@ def phase_env(dev: torch.device) -> str:
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
     print(card)
-    print(f"host transcript native: strobe bulk {strobe.has_native_bulk()}  "
-          f"keccak {keccak.has_native()}")
+    print(f"host transcript: strobe bulk native {strobe.has_native_bulk()}, "
+          f"keccak native {keccak.has_native()} "
+          f"(False: the Python path is in use)")
     return card
 
 
@@ -91,7 +140,7 @@ def phase_build() -> None:
 
 def _curve_points(n: int, rng: random.Random):
     """n distinct subgroup points: an arithmetic progression a*G + i*b*G."""
-    from go_curdleproofs_tpu.utils import field_host as fh
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
 
     p = fh.g1_mul(fh.G1_GEN, rng.randrange(1, fh.R))
     step = fh.g1_mul(fh.G1_GEN, rng.randrange(1, fh.R))
@@ -104,7 +153,7 @@ def _curve_points(n: int, rng: random.Random):
 
 def _affine_err(a, b) -> int:
     """Max |difference| of canonical affine coordinates (0 when equal)."""
-    from go_curdleproofs_tpu.utils import field_host as fh
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
 
     err = 0
     for pa, pb in zip(a, b):
@@ -115,79 +164,199 @@ def _affine_err(a, b) -> int:
     return err
 
 
+def _point_err(got, want) -> int:
+    """0 when two PointVecs hold the same words; else the affine error."""
+    from go_curdleproofs_tpu_torch.ops import curve
+
+    if all(torch.equal(a, b) for a, b in zip(got, want)):
+        return 0
+    return max(1, _affine_err(curve.to_affine_host(got),
+                              curve.to_affine_host(want)))
+
+
+def _rand_digits(shape, rng: random.Random) -> torch.Tensor:
+    n = 1
+    for d in shape:
+        n *= d
+    return torch.tensor([rng.randint(-8, 8) for _ in range(n)],
+                        dtype=torch.int32).reshape(shape)
+
+
 def phase_kernels(dev: torch.device) -> dict:
-    """Each kernel vs its plain version on the card, at the main path's
-    shapes. Returns {name: {"max_abs_err", "ms", "plain_ms"}} at the
-    largest shape."""
-    from go_curdleproofs_tpu.utils import field_host as fh
+    """Each kernel vs its plain version on the card, at the main paths'
+    shapes. Returns {name: {"max_abs_err", "ms", "plain_ms", "bound_ms",
+    "bound_by"}} at the kernel's widest main-path shape."""
     from go_curdleproofs_tpu_torch.ops import curve, fp, kernels
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
 
     rng = random.Random(2024)
     res = {}
+    W = curve.NUM_WINDOWS
     print("kernel vs plain: exact integer results, tolerance 0")
 
-    # B7: the decode's sqrt ladder over the 1024-lane pool
-    vals = [0, 1, fh.P - 1] + [rng.randrange(fh.P) for _ in range(1021)]
-    x = fp.from_ints(vals, dev)
-    e = (fh.P + 1) // 4
-    got, want = kernels.pow_fixed(x, e), kernels.pow_fixed_plain(x, e)
-    gi, wi = fp.to_ints(got), fp.to_ints(want)
-    err = max(abs(a - b) for a, b in zip(gi, wi))
-    check(err == 0 and gi == [pow(v, e, fh.P) for v in vals], "pow_fixed")
-    res["pow_fixed"] = dict(
-        max_abs_err=err, ms=cuda_ms(lambda: kernels.pow_fixed(x, e), 5),
-        plain_ms=cuda_ms(lambda: kernels.pow_fixed_plain(x, e)))
-    print(f"pow_fixed [1024] sqrt exponent: exact; kernel "
-          f"{res['pow_fixed']['ms']:.3f} ms, plain "
-          f"{res['pow_fixed']['plain_ms']:.1f} ms")
+    def report(name, shape, err, ms, plain_ms, bnd, keep=True):
+        print(f"{name} {shape}: exact; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms, bound {bnd['bound_ms']:.6f} ms by "
+              f"{bnd['bound_by']}")
+        if keep:
+            res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
 
-    # a 1024-point base row and its extended table [9, 1, 2048]
+    # B1: the beta multiply of a table's x plane (one element against
+    # [9, 1, 2048]) and the decoder's elementwise products ([2 * 1024])
+    vals = [0, 1, fh.P - 1] + [rng.randrange(fh.P) for _ in range(2045)]
+    a = fp.from_ints(vals, dev)
+    b = fp.from_ints(vals[::-1], dev)
+    got, want = kernels.mont_mul(a, b), kernels.mont_mul_plain(a, b)
+    gi = fp.to_ints(got)
+    check(torch.equal(got, want) and gi == [x * y % fh.P for x, y in
+                                            zip(vals, vals[::-1])],
+          "mont_mul [2048]")
+    report("mont_mul", [2048], 0,
+           kernel_ms(lambda: kernels.mont_mul(a, b)),
+           cuda_ms(lambda: kernels.mont_mul_plain(a, b)),
+           bound(3 * 2048 * ELEM_BYTES, 2048), keep=False)
+    plane = fp.from_ints([rng.randrange(fh.P) for _ in range(9 * 2048)],
+                         dev).reshape(9, 1, 2048, fp.NWORDS)
+    beta = curve._beta_elem(dev)
+    got, want = kernels.mont_mul(plane, beta), kernels.mont_mul_plain(plane,
+                                                                      beta)
+    check(torch.equal(got, want), "mont_mul [9,1,2048] x one element")
+    n = 9 * 2048
+    report("mont_mul", [9, 1, 2048], 0,
+           kernel_ms(lambda: kernels.mont_mul(plane, beta)),
+           cuda_ms(lambda: kernels.mont_mul_plain(plane, beta)),
+           bound((2 * n + 1) * ELEM_BYTES, n))
+
+    # a 1024-point base row; its first lanes hold the edge cases
     pts = _curve_points(1024, rng)
-    sv = curve.StackedVec.from_affine([pts], device=dev, pad_to=1024)
-    table = sv.table()
+    qts = _curve_points(1024, rng)
+    pts[0] = None                              # infinity + Q
+    qts[1] = None                              # P + infinity
+    pts[2] = qts[2] = None                     # infinity + infinity
+    qts[3] = pts[3]                            # P + P
+    qts[4] = fh.g1_neg(pts[4])                 # P + (-P)
+    pv = curve.from_affine_host(pts, device=dev)
+    qv = curve.from_affine_host(qts, device=dev)
 
-    # B6: MSM wide phase, static CRS row (n2 = 256) and dynamic row (2048)
-    sums = {}
-    for n2 in (256, 2048):
-        tab = curve.pmap(lambda t: t[:, :, :n2].contiguous(), table)
-        dig = torch.tensor([[[rng.randint(-8, 8) for _ in range(
-            curve.NUM_WINDOWS)] for _ in range(n2)]], dtype=torch.int32)
-        dig[0, :17, 0] = torch.arange(-8, 9, dtype=torch.int32)
-        dig = dig.to(dev)
+    # B3: the table build's double of the [1, 1024] row
+    got, want = kernels.point_double(pv), kernels.point_double_plain(pv)
+    err = _point_err(got, want)
+    check(err == 0 and curve.to_affine_host(got)
+          == [fh.g1_add(p, p) for p in pts], "point_double [1024]")
+    report("point_double", [1024], err,
+           kernel_ms(lambda: kernels.point_double(pv)),
+           cuda_ms(lambda: kernels.point_double_plain(pv)),
+           bound(6 * 1024 * ELEM_BYTES, 1024 * PRODUCTS_DOUBLE))
+
+    # B2: the [33] window-sum add of the final MSM and the [4, 1, 1024]
+    # table-build add
+    got, want = kernels.point_add(pv, qv), kernels.point_add_plain(pv, qv)
+    check(_point_err(got, want) == 0 and curve.to_affine_host(got)
+          == [fh.g1_add(p, q) for p, q in zip(pts, qts)],
+          "point_add edge cases")
+    same = kernels.point_add(pv, pv)                       # aliased operands
+    check(_point_err(same, kernels.point_add_plain(pv, pv)) == 0
+          and curve.to_affine_host(same) == [fh.g1_add(p, p) for p in pts],
+          "point_add(p, p)")
+    p33 = curve.pmap(lambda t: t[:33].contiguous(), pv)
+    q33 = curve.pmap(lambda t: t[:33].contiguous(), qv)
+    got, want = kernels.point_add(p33, q33), kernels.point_add_plain(p33, q33)
+    check(_point_err(got, want) == 0, "point_add [33]")
+    report("point_add", [33], 0,
+           kernel_ms(lambda: kernels.point_add(p33, q33)),
+           cuda_ms(lambda: kernels.point_add_plain(p33, q33)),
+           bound(9 * 33 * ELEM_BYTES, 33 * PRODUCTS_ADD), keep=False)
+    p4 = curve.pmap(lambda t: t.expand(4, 1, 1024, fp.NWORDS).contiguous(),
+                    pv)
+    q4 = curve.pmap(lambda t: torch.stack(
+        [t, t.roll(1, 0), t.roll(2, 0), t.roll(3, 0)])[:, None].contiguous(),
+        qv)
+    got, want = kernels.point_add(p4, q4), kernels.point_add_plain(p4, q4)
+    err = _point_err(got, want)
+    check(err == 0, "point_add [4,1,1024]")
+    report("point_add", [4, 1, 1024], err,
+           kernel_ms(lambda: kernels.point_add(p4, q4)),
+           cuda_ms(lambda: kernels.point_add_plain(p4, q4)),
+           bound(9 * 4096 * ELEM_BYTES, 4096 * PRODUCTS_ADD))
+
+    # B7: the prover's inverse ladder ([256], exponent p - 2, with 0) and
+    # the decode's sqrt ladder over the 1024-lane pool
+    for n, e, what in ((256, fh.P - 2, "inverse"),
+                       (1024, (fh.P + 1) // 4, "sqrt")):
+        vals = [0, 1, fh.P - 1] + [rng.randrange(fh.P) for _ in range(n - 3)]
+        x = fp.from_ints(vals, dev)
+        got, want = kernels.pow_fixed(x, e), kernels.pow_fixed_plain(x, e)
+        gi, wi = fp.to_ints(got), fp.to_ints(want)
+        err = max(abs(u - v) for u, v in zip(gi, wi))
+        check(err == 0 and gi == [pow(v, e, fh.P) for v in vals],
+              f"pow_fixed {what}")
+        products = n * (e.bit_length() - 1 + bin(e).count("1") - 1)
+        report("pow_fixed", f"[{n}] {what} exponent", err,
+               kernel_ms(lambda: kernels.pow_fixed(x, e), 5),
+               cuda_ms(lambda: kernels.pow_fixed_plain(x, e), 1),
+               bound(2 * n * ELEM_BYTES, products))
+
+    def msm_bound(tab, dig):
+        m, n2 = dig.shape[:2]
+        n_bytes = (3 * 9 * m * n2 + 3 * m * W) * ELEM_BYTES + 4 * dig.numel()
+        # a lane whose digit is zero selects infinity and needs no add
+        return bound(n_bytes, int((dig != 0).sum()) * PRODUCTS_ADD)
+
+    def check_msm(tab, dig, shape, keep):
         got = kernels.msm_select_reduce(tab, dig)
         want = kernels.msm_select_reduce_plain(tab, dig)
         err = _affine_err(curve.to_affine_host(got),
                           curve.to_affine_host(want))
-        check(err == 0, f"msm_select_reduce [9,1,{n2}]")
-        ms = cuda_ms(lambda: kernels.msm_select_reduce(tab, dig), 5)
-        plain_ms = cuda_ms(lambda: kernels.msm_select_reduce_plain(tab, dig))
-        print(f"msm_select_reduce [9,1,{n2}]: exact; kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.1f} ms")
-        sums[n2] = got
-        res["msm_select_reduce"] = dict(max_abs_err=err, ms=ms,
-                                        plain_ms=plain_ms)
+        check(err == 0, f"msm_select_reduce {shape}")
+        report("msm_select_reduce", shape, err,
+               kernel_ms(lambda: kernels.msm_select_reduce(tab, dig), 5),
+               cuda_ms(lambda: kernels.msm_select_reduce_plain(tab, dig), 1),
+               msm_bound(tab, dig), keep=keep)
+        return got
 
-    # B5: decode's subgroup Horner [33, 2048], final MSM Horner [33, 1]
-    dig = torch.tensor([[rng.randint(-8, 8) for _ in range(curve.NUM_WINDOWS)]
-                        for _ in range(2048)], dtype=torch.int32).to(dev)
+    def check_combine(sel, keep):
+        shape = list(sel.x.shape[:2])
+        got = kernels.windowed_combine(sel)
+        want = kernels.windowed_combine_plain(sel)
+        err = _point_err(got, want)
+        check(err == 0, f"windowed_combine {shape}")
+        n_win, rows = shape
+        report("windowed_combine", shape, err,
+               kernel_ms(lambda: kernels.windowed_combine(sel), 5),
+               cuda_ms(lambda: kernels.windowed_combine_plain(sel), 1),
+               bound(3 * (n_win + 1) * rows * ELEM_BYTES, rows * n_win
+                     * (4 * PRODUCTS_DOUBLE + PRODUCTS_ADD)), keep=keep)
+
+    # B6 then B5 as a same-multiscalar round gives them: 6 terms over the
+    # three-row [G, T, U] table [9, 3, 256]
+    gtu = curve.StackedVec.from_affine(
+        [pts[5:133], qts[5:133], pts[133:261]], device=dev, pad_to=128)
+    tab6 = curve.pmap(lambda t: t.index_select(1, torch.tensor(
+        [0, 1, 2, 0, 1, 2], device=dev)).contiguous(), gtu.table())
+    dig6 = _rand_digits((6, 256, W), rng).to(dev)
+    sums6 = check_msm(tab6, dig6, [9, 6, 256], keep=False)
+    check_combine(curve.pmap(lambda t: t.transpose(0, 1).contiguous(), sums6),
+                  keep=False)
+
+    # B6 as the verifier gives it: static CRS row (n2 = 256), dynamic row
+    # (n2 = 2048) of the extended table [9, 1, 2048]
+    table = curve.StackedVec.from_affine([_curve_points(1024, rng)],
+                                         device=dev, pad_to=1024).table()
+    sums = {}
+    for n2 in (256, 2048):
+        tab = curve.pmap(lambda t: t[:, :, :n2].contiguous(), table)
+        dig = _rand_digits((1, n2, W), rng)
+        dig[0, :17, 0] = torch.arange(-8, 9, dtype=torch.int32)
+        sums[n2] = check_msm(tab, dig.to(dev), [9, 1, n2], keep=True)
+
+    # B5: final MSM Horner [33, 1], decode's subgroup Horner [33, 2048]
+    dig = _rand_digits((2048, W), rng).to(dev)
     sel_big = curve.pmap(lambda t: t.contiguous(), curve.table_select_windows(
         curve.pmap(lambda t: t[:, 0], table), dig))            # [33, 2048]
     sel_one = curve.pmap(lambda t: t.transpose(0, 1).contiguous(),
                          sums[2048])                            # [33, 1]
-    for sel in (sel_one, sel_big):
-        shape = list(sel.x.shape[:2])
-        got = kernels.windowed_combine(sel)
-        want = kernels.windowed_combine_plain(sel)
-        exact = all(torch.equal(a, b) for a, b in zip(got, want))
-        err = _affine_err(curve.to_affine_host(got),
-                          curve.to_affine_host(want))
-        check(exact and err == 0, f"windowed_combine {shape}")
-        ms = cuda_ms(lambda: kernels.windowed_combine(sel), 5)
-        plain_ms = cuda_ms(lambda: kernels.windowed_combine_plain(sel))
-        print(f"windowed_combine {shape}: exact; kernel {ms:.3f} ms, "
-              f"plain {plain_ms:.1f} ms")
-        res["windowed_combine"] = dict(max_abs_err=err, ms=ms,
-                                       plain_ms=plain_ms)
+    check_combine(sel_one, keep=False)
+    check_combine(sel_big, keep=True)
     return res
 
 
@@ -198,14 +367,29 @@ def _trackers(pairs):
             for a, b in pairs]
 
 
-def phase_main_path(dev: torch.device, card: str) -> dict:
-    import hashlib
+def _golden_whisk_pre(w):
+    """The golden Whisk vector's pre-trackers, from its tracker seed."""
+    from go_curdleproofs_tpu_torch.models import whisk
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
+    from go_curdleproofs_tpu_torch.utils.rand import Rand
 
-    from go_curdleproofs_tpu.utils import codec
-    from go_curdleproofs_tpu.utils import field_host as fh
-    from go_curdleproofs_tpu.utils.rand import Rand
+    r = Rand(w["tracker_seed"])
+    pre = []
+    for _ in range(w["ell"]):
+        rr, kk = r.get_fr(), r.get_fr()
+        pre.append(whisk.WhiskTracker.from_points(
+            fh.g1_mul(fh.G1_GEN, rr), fh.g1_mul(fh.G1_GEN, rr * kk % fh.R)))
+    return pre
+
+
+def phase_verifier(dev: torch.device, card: str):
+    """The ELL=124 verifier path. Returns (launch counts over the two
+    fixture verifies, the CRS, the fixture)."""
     from go_curdleproofs_tpu_torch.models import curdleproof, whisk
     from go_curdleproofs_tpu_torch.ops import kernels
+    from go_curdleproofs_tpu_torch.utils import codec
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
+    from go_curdleproofs_tpu_torch.utils.rand import Rand
 
     with open(FIXTURE) as f:
         fx = json.load(f)
@@ -229,10 +413,10 @@ def phase_main_path(dev: torch.device, card: str) -> dict:
     ok1 = verify(*insts[1])
     torch.cuda.synchronize()
     counts = dict(kernels.launches)
-    print(f"fixture verify: {ok0}, {ok1}; launches {counts}")
+    print(f"fixture verify: {ok0}, {ok1}; launches over both {counts}")
     check(ok0 and ok1, "ELL=124 fixture proofs accepted")
     for name, n in counts.items():
-        check(n > 0, f"{name} launched on the main path")
+        check(n > 0, f"{name} launched on the verifier path")
 
     pre, post, proof = insts[0]
     bad = bytearray(proof)
@@ -244,8 +428,11 @@ def phase_main_path(dev: torch.device, card: str) -> dict:
     print("tampered proofs rejected")
 
     warm_ms = cuda_ms(lambda: check(verify(*insts[0]), "warm verify"))
+    kernels.reset_launches()
+    check(verify(*insts[0]), "counted verify")
     print(f"verify ELL=124: cold {cold_ms:.1f} ms, warm {warm_ms:.1f} ms "
-          f"(median of 3) on {card}")
+          f"(median of 3) on {card}; launches per verify "
+          f"{dict(kernels.launches)}")
 
     with open(GOLDEN) as f:
         gv = json.load(f)
@@ -257,19 +444,13 @@ def phase_main_path(dev: torch.device, card: str) -> dict:
     crs_vec = next(v for v in gv["shuffle"] if v["crs_seed"] == w["crs_seed"])
     check(hashlib.sha256(blob).hexdigest() == crs_vec["crs_sha256"],
           "golden ell=12 CRS bytes")
-    r = Rand(w["tracker_seed"])
-    gpre = []
-    for _ in range(w["ell"]):
-        rr, kk = r.get_fr(), r.get_fr()
-        gpre.append(whisk.WhiskTracker.from_points(
-            fh.g1_mul(fh.G1_GEN, rr), fh.g1_mul(fh.G1_GEN, rr * kk % fh.R)))
     ph = bytes.fromhex(w["post_trackers_hex"])
     gpost = [whisk.WhiskTracker(ph[96 * i:96 * i + 48],
                                 ph[96 * i + 48:96 * i + 96])
              for i in range(w["ell"])]
     check(whisk.is_valid_whisk_shuffle_proof(
-        gcrs, gpre, gpost, bytes.fromhex(w["proof_hex"]), Rand(3),
-        device=dev), "golden ell=12 Whisk proof accepted")
+        gcrs, _golden_whisk_pre(w), gpost, bytes.fromhex(w["proof_hex"]),
+        Rand(3), device=dev), "golden ell=12 Whisk proof accepted")
     t = gv["tracker"]
     k = int(t["k"], 16)
     r_g = fh.g1_mul(fh.G1_GEN, t["r"])
@@ -278,6 +459,84 @@ def phase_main_path(dev: torch.device, card: str) -> dict:
         codec.g1_to_bytes(fh.g1_mul(fh.G1_GEN, k)),
         bytes.fromhex(t["proof_hex"])), "golden tracker proof accepted")
     print("golden ell=12 Whisk proof and tracker proof accepted")
+    return counts, crs, insts, gv
+
+
+def phase_prover(dev: torch.device, card: str, crs, insts, gv) -> dict:
+    """The prover path on the card: golden bytes reproduced, then one proof
+    at ELL=124. Returns the launch counts of one ELL=124 prove."""
+    from go_curdleproofs_tpu_torch.models import curdleproof, whisk
+    from go_curdleproofs_tpu_torch.ops import kernels
+    from go_curdleproofs_tpu_torch.utils import codec
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
+    from go_curdleproofs_tpu_torch.utils.rand import Rand
+
+    w = gv["whisk"]
+    gcrs = curdleproof.generate_crs(w["ell"], Rand(w["crs_seed"]), device=dev)
+    post, proof = whisk.generate_whisk_shuffle_proof(
+        gcrs, _golden_whisk_pre(w), Rand(w["prove_seed"]), device=dev)
+    check(proof.hex() == w["proof_hex"], "golden ell=12 Whisk proof bytes")
+    check("".join((t.r_g + t.k_r_g).hex() for t in post)
+          == w["post_trackers_hex"], "golden ell=12 post-trackers")
+
+    for vec in gv["shuffle"]:
+        ell = vec["ell"]
+        scrs = curdleproof.generate_crs(ell, Rand(vec["crs_seed"]),
+                                        device=dev)
+        r = Rand(vec["inst_seed"])
+        Rs, Ss = r.get_g1s(ell), r.get_g1s(ell)
+        rp = Rand(vec["prove_seed"])
+        perm = rp.generate_permutation(ell)
+        k = rp.get_fr()
+        Ts, Us, M, rs_m = curdleproof.shuffle_permute_commit(
+            scrs.gs, scrs.hs, Rs, Ss, perm, k, rp, device=dev)
+        check(codec.g1_to_bytes(M).hex() == vec["m_hex"],
+              f"golden ell={ell} commitment M")
+        sp = curdleproof.prove(scrs, Rs, Ss, Ts, Us, M, perm, k, rs_m, rp,
+                               device=dev)
+        buf = io.BytesIO()
+        sp.serialize(buf)
+        check(buf.getvalue().hex() == vec["proof_hex"],
+              f"golden ell={ell} shuffle proof bytes")
+
+    t = gv["tracker"]
+    k = int(t["k"], 16)
+    r_g = fh.g1_mul(fh.G1_GEN, t["r"])
+    tp = whisk.generate_whisk_tracker_proof(
+        whisk.WhiskTracker.from_points(r_g, fh.g1_mul(r_g, k)), k,
+        Rand(t["rand_seed"]))
+    check(tp.hex() == t["proof_hex"], "golden tracker proof bytes")
+    print("golden ell=12 Whisk proof, ell=12 and ell=60 shuffle proofs and "
+          "tracker proof reproduced byte for byte")
+
+    pre = insts[0][0]
+
+    def prove():
+        return whisk.generate_whisk_shuffle_proof(crs, pre, Rand(PROVE_SEED),
+                                                  device=dev)
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    post, proof = prove()
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(kernels.launches)
+    check(len(proof) == whisk.WHISK_SHUFFLE_PROOF_SIZE, "proof size 4576")
+    for name, n in counts.items():
+        check(n > 0, f"{name} launched on the prover path")
+
+    def verify(proof_bytes):
+        return whisk.is_valid_whisk_shuffle_proof(
+            crs, pre, post, proof_bytes, Rand(11), device=dev)
+
+    check(verify(proof), "ELL=124 proof of the port accepted by its verifier")
+    bad = bytearray(proof)
+    bad[SMS_FLIP_BYTE] ^= 0x01
+    check(not verify(bytes(bad)), "flipped byte of the new proof rejected")
+    warm_ms = cuda_ms(lambda: check(prove()[1] == proof, "prove repeats"))
+    print(f"prove ELL=124: cold {cold_ms:.1f} ms, warm {warm_ms:.1f} ms "
+          f"(median of 3) on {card}; proof verified, flipped byte rejected; "
+          f"launches per prove {counts}")
     return counts
 
 
@@ -285,16 +544,26 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    from go_curdleproofs_tpu_torch.ops import kernels
+
     dev = torch.device("cuda", 0)
     card = phase_env(dev)
     phase_build()
     timings = phase_kernels(dev)
-    counts = phase_main_path(dev, card)
-    check("jax" not in sys.modules, "no jax imported")
+    verify_counts, crs, insts, gv = phase_verifier(dev, card)
+    prove_counts = phase_prover(dev, card, crs, insts, gv)
+    check("jax" not in sys.modules
+          and "go_curdleproofs_tpu" not in sys.modules,
+          "neither jax nor the JAX package imported")
     torch.cuda.synchronize()
-    summary = [dict(name=name, route="cuda", source=KERNEL_SOURCE,
-                    replaces=REPLACES[name], launches=counts[name],
-                    **timings[name]) for name in REPLACES]
+    print(card)
+    summary = [dict(name=name, route="cuda",
+                    source=CSRC + kernels.KERNEL_SOURCE[name],
+                    replaces=REPLACES[name],
+                    launches=verify_counts[name] + prove_counts[name],
+                    launches_two_verifies=verify_counts[name],
+                    launches_one_prove=prove_counts[name],
+                    library_ms=None, **timings[name]) for name in REPLACES]
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,25 +1,32 @@
-"""Curdleproofs shuffle argument, verifier side (go_curdleproofs_tpu/
-models/curdleproof.py; curdleproof.go:199-318, crs.go:20-59).
+"""Curdleproofs shuffle argument (go_curdleproofs_tpu/models/
+curdleproof.py; curdleproof.go and crs.go of the Go reference).
 
-Verify replays the Fiat-Shamir transcript, runs the sub-verifiers in the
-reference's order and defers every group identity into one MsmAccumulator,
-whose final MSM is the verification's one device MSM.
+  Step 1: Fiat-Shamir challenges `as` from the instance (Rs, Ss, Ts, Us, M);
+  Step 2: commit A = <perm(as), Gs> + <rs_a', Hs>; same-permutation argument;
+  Step 3: R = <as, Rs>, S = <as, Ss>; T = com(k*R), U = com(k*S); same-scalar;
+  Step 4: same-multiscalar over the concatenated bases.
+
+Prove is host logic over one device API (`curve.StackedVec.msm_many` behind
+`curve.FoldedBases`) and `curve.batch_scalar_mul`; the transcript order and
+the order of draws from `rand` fix the proof bytes. Verify replays the
+transcript, runs the sub-verifiers in the reference's order and defers
+every group identity into one MsmAccumulator, whose final MSM is the
+verification's one device MSM.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import BinaryIO, Dict, List, Tuple
+from typing import BinaryIO, Dict, List, Sequence, Tuple
 
 import torch
 
-from go_curdleproofs_tpu.utils import field_host as fh
-from go_curdleproofs_tpu.utils.field_host import Affine
-from go_curdleproofs_tpu.utils.rand import Rand
-from go_curdleproofs_tpu.utils.transcript import Transcript
-
 from ..ops import curve
 from ..utils import codec
+from ..utils import field_host as fh
+from ..utils.field_host import Affine
+from ..utils.rand import Rand
+from ..utils.transcript import Transcript
 from . import same_multiscalar, same_permutation, same_scalar
 from .group_commitment import GroupCommitment
 from .msm_accumulator import MsmAccumulator, StaticBases
@@ -73,6 +80,17 @@ class Proof:
     proof_same_scalar: same_scalar.Proof
     proof_same_multiscalar: same_multiscalar.Proof
 
+    def serialize(self, w: BinaryIO) -> None:
+        e = codec.Encoder(w)
+        e.write_point(self.a)
+        self.cm_t.serialize(w)
+        self.cm_u.serialize(w)
+        e.write_point(self.r)
+        e.write_point(self.s)
+        self.proof_same_permutation.serialize(w)
+        self.proof_same_scalar.serialize(w)
+        self.proof_same_multiscalar.serialize(w)
+
     @classmethod
     def from_reader(cls, r: BinaryIO) -> "Proof":
         d = codec.Decoder(r)
@@ -87,9 +105,63 @@ class Proof:
                    same_multiscalar.Proof.from_reader(r))
 
 
+def prove(crs: CRS, Rs: List[Affine], Ss: List[Affine], Ts: List[Affine],
+          Us: List[Affine], M: Affine, perm: Sequence[int], k: int,
+          rs_m: List[int], rand: Rand, *, device: torch.device) -> Proof:
+    """curdleproof.go:38-197, host-orchestrated: every MSM is a device call,
+    the transcript and the Fr arithmetic run on the host."""
+    transcript = Transcript(LABEL_TRANSCRIPT)
+
+    # Step 1
+    transcript.append_points(LABEL_STEP1, *Rs)
+    transcript.append_points(LABEL_STEP1, *Ss)
+    transcript.append_points(LABEL_STEP1, *Ts)
+    transcript.append_points(LABEL_STEP1, *Us)
+    transcript.append_points(LABEL_STEP1, M)
+    as_ = transcript.get_and_append_challenges(LABEL_VEC_A, len(Rs))
+
+    # Step 2
+    rs_a = rand.get_frs(N_BLINDERS - 2)
+    rs_a_prime = rs_a + [0, 0]
+    perm_as = same_permutation.permute(as_, perm)
+    gh = curve.StackedVec.from_affine([crs.gs, crs.hs], device=device)
+    (A,) = gh.msm_many([[(0, perm_as, 0), (1, rs_a_prime, 0)]])
+
+    proof_same_perm = same_permutation.prove(
+        same_permutation.CRS(crs.gs, crs.hs, crs.h),
+        A, M, as_, perm, rs_a_prime, rs_m, transcript, rand, device=device)
+
+    # Step 3
+    r_t = rand.get_fr()
+    r_u = rand.get_fr()
+    R, S = curve.StackedVec.from_affine([Rs, Ss], device=device).msm_many(
+        [[(0, as_, 0)], [(1, as_, 0)]])
+    cm_t = GroupCommitment.new(crs.gt, crs.h, fh.g1_mul(R, k), r_t)
+    cm_u = GroupCommitment.new(crs.gu, crs.h, fh.g1_mul(S, k), r_u)
+
+    proof_same_scalar = same_scalar.prove(
+        same_scalar.CRS(crs.gt, crs.gu, crs.h),
+        R, S, cm_t, cm_u, k, r_t, r_u, transcript, rand)
+
+    # Step 4: concatenated instance for the same-multiscalar argument
+    a_prime = fh.g1_add(A, fh.g1_add(cm_t.t1, cm_u.t1))
+    G = list(crs.gs) + list(crs.hs[: N_BLINDERS - 2]) + [crs.gt, crs.gu]
+    T_prime = list(Ts) + [None, None, crs.h, None]
+    U_prime = list(Us) + [None, None, None, crs.h]
+    x = perm_as + rs_a + [r_t, r_u]
+
+    proof_same_msm = same_multiscalar.prove(
+        G, a_prime, cm_t.t2, cm_u.t2, T_prime, U_prime, x, transcript, rand,
+        device=device)
+
+    return Proof(A, cm_t, cm_u, R, S, proof_same_perm, proof_same_scalar,
+                 proof_same_msm)
+
+
 def verify(proof: Proof, crs: CRS, Rs: List[Affine], Ss: List[Affine],
            Ts: List[Affine], Us: List[Affine], M: Affine, rand: Rand, *,
            device: torch.device) -> bool:
+    """curdleproof.go:199-318."""
     transcript = Transcript(LABEL_TRANSCRIPT)
     msm_accumulator = MsmAccumulator(device=device,
                                      static_bases=_gh_static(crs, device))
@@ -147,7 +219,11 @@ _GH_CACHE_MAX = 4
 
 def _gh_stacked(crs_gs, crs_hs, device: torch.device) -> curve.StackedVec:
     """The one-row [Gs|Hs] bases on `device` with their multiples table,
-    cached per CRS content and device (the table builds once)."""
+    cached per CRS content and device: the shuffle commit and the verifier
+    address the same device bases, so the upload and the table build happen
+    once per CRS, device and process. Content keys (the point tuples
+    themselves) hold strong references, so a freed CRS can never alias a
+    live entry."""
     key = (tuple(crs_gs), tuple(crs_hs), device)
     sv = _gh_cache.get(key)
     if sv is None:
@@ -171,3 +247,24 @@ def _gh_static(crs: CRS, device: torch.device) -> StaticBases:
                           list(crs.gs) + list(crs.hs))
         _gh_static_cache[key] = ent
     return ent
+
+
+def shuffle_permute_commit(crs_gs: List[Affine], crs_hs: List[Affine],
+                           Rs: List[Affine], Ss: List[Affine],
+                           perm: Sequence[int], k: int, rand: Rand, *,
+                           device: torch.device):
+    """The shuffle itself: Ts = perm(k*Rs), Us = perm(k*Ss),
+    M = <perm-range, Gs> + <rs_m, Hs> (common/util.go:45-88 of the Go
+    reference). The 2n randomizer scalar multiplications are one batched
+    device call. Returns (Ts, Us, M, rs_m)."""
+    n = len(Rs)
+    scaled = curve.batch_scalar_mul(list(Rs) + list(Ss), [k] * (2 * n),
+                                    device=device)
+    Ts = same_permutation.permute(scaled[:n], perm)
+    Us = same_permutation.permute(scaled[n:], perm)
+
+    perm_range = same_permutation.permute(list(range(len(crs_gs))), perm)
+    rs_m = rand.get_frs(N_BLINDERS)
+    (M,) = _gh_stacked(crs_gs, crs_hs, device).msm_many(
+        [[(0, perm_range, 0), (0, rs_m, len(crs_gs))]])
+    return Ts, Us, M, rs_m

@@ -20,12 +20,11 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from go_curdleproofs_tpu.utils import field_host as fh
-from go_curdleproofs_tpu.utils.field_host import Affine
-from go_curdleproofs_tpu.utils.rand import Rand
-
 from ..ops import curve
+from ..utils import field_host as fh
 from ..utils.codec import LazyPoint, point_is_infinity, resolve_point
+from ..utils.field_host import Affine
+from ..utils.rand import Rand
 
 LinComb = Sequence[Tuple[Affine, int]]
 Commitment = Union[Affine, LinComb]

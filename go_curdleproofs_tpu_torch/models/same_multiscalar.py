@@ -1,19 +1,26 @@
-"""Same-multiscalar argument, verifier side (go_curdleproofs_tpu/models/
-same_multiscalar.py; samemultiscalarargument.go:159-280): A = <x, G>,
-Z_t = <x, T>, Z_u = <x, U> share x. The three checks defer into the
-accumulator as linear combinations."""
+"""Same-multiscalar argument: Bulletproofs-style folding over three bases
+(go_curdleproofs_tpu/models/same_multiscalar.py;
+samemultiscalarargument.go of the Go reference): A = <x, G>, Z_t = <x, T>,
+Z_u = <x, U> share x.
+
+The prover keeps G, T, U stacked on the device as one three-row
+`curve.FoldedBases`: each round's six cross-term MSMs are one `msm_many`
+call and the folds are scalar-side. The verifier's three checks defer into
+the accumulator as linear combinations."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import BinaryIO, List
 
-from go_curdleproofs_tpu.utils import field_host as fh
-from go_curdleproofs_tpu.utils.field_host import Affine
-from go_curdleproofs_tpu.utils.rand import Rand
-from go_curdleproofs_tpu.utils.transcript import Transcript
+import torch
 
+from ..ops import curve
 from ..utils import codec
+from ..utils import field_host as fh
+from ..utils.field_host import Affine
+from ..utils.rand import Rand
+from ..utils.transcript import Transcript
 from .msm_accumulator import MsmAccumulator
 
 LABEL_STEP1 = b"same_msm_step1"
@@ -37,6 +44,19 @@ class Proof:
     r_u: List[Affine] = field(default_factory=list)
     x: int = 0
 
+    def serialize(self, w: BinaryIO) -> None:
+        e = codec.Encoder(w)
+        e.write_point(self.b_a)
+        e.write_point(self.b_t)
+        e.write_point(self.b_u)
+        e.write_points(self.l_a)
+        e.write_points(self.l_t)
+        e.write_points(self.l_u)
+        e.write_points(self.r_a)
+        e.write_points(self.r_t)
+        e.write_points(self.r_u)
+        e.write_fr(self.x)
+
     @classmethod
     def from_reader(cls, r: BinaryIO) -> "Proof":
         d = codec.Decoder(r)
@@ -44,6 +64,61 @@ class Proof:
                    d.read_points(), d.read_points(), d.read_points(),
                    d.read_points(), d.read_points(), d.read_points(),
                    d.read_fr())
+
+
+def prove(G: List[Affine], A: Affine, Z_t: Affine, Z_u: Affine,
+          T: List[Affine], U: List[Affine], x: List[int],
+          transcript: Transcript, rand: Rand, *,
+          device: torch.device) -> Proof:
+    """samemultiscalarargument.go:37-157."""
+    n = len(x)
+    r = rand.get_frs(n)
+
+    gtu = curve.FoldedBases.from_affine([G, T, U], device=device)
+    b_a, b_t, b_u = gtu.msm_many(
+        [[(0, r, 0)], [(1, r, 0)], [(2, r, 0)]])
+
+    transcript.append_points(LABEL_STEP1, A, Z_t, Z_u)
+    transcript.append_points(LABEL_STEP1, *T)
+    transcript.append_points(LABEL_STEP1, *U)
+    transcript.append_points(LABEL_STEP1, b_a, b_t, b_u)
+    alpha = transcript.get_and_append_challenge(LABEL_ALPHA)
+
+    x = [(ri + xi * alpha) % fh.R for ri, xi in zip(r, x)]
+
+    l_as: List[Affine] = []
+    l_ts: List[Affine] = []
+    l_us: List[Affine] = []
+    r_as: List[Affine] = []
+    r_ts: List[Affine] = []
+    r_us: List[Affine] = []
+
+    while len(x) > 1:
+        half = len(x) // 2
+        x_l, x_r = x[:half], x[half:]
+
+        # all six cross-term MSMs in one device call + one fetch
+        l_a, l_t, l_u, r_a, r_t, r_u = gtu.msm_many([
+            [(0, x_l, half)], [(1, x_l, half)], [(2, x_l, half)],
+            [(0, x_r, 0)], [(1, x_r, 0)], [(2, x_r, 0)]])
+
+        l_as.append(l_a)
+        l_ts.append(l_t)
+        l_us.append(l_u)
+        r_as.append(r_a)
+        r_ts.append(r_t)
+        r_us.append(r_u)
+
+        transcript.append_points(LABEL_LOOP, l_a, l_t, l_u, r_a, r_t, r_u)
+        gamma = transcript.get_and_append_challenge(LABEL_GAMMA)
+        if gamma == 0:
+            raise ValueError("gamma is zero")
+        gamma_inv = fh.fr_inv(gamma)
+
+        x = [(xl + gamma_inv * xr) % fh.R for xl, xr in zip(x_l, x_r)]
+        gtu = gtu.fold(gamma)
+
+    return Proof(b_a, b_t, b_u, l_as, l_ts, l_us, r_as, r_ts, r_us, x[0])
 
 
 def unfolded_scalars(proof: Proof, n: int, transcript: Transcript):

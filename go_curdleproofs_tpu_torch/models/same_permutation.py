@@ -1,18 +1,20 @@
-"""Same-permutation argument, verifier side (go_curdleproofs_tpu/models/
-same_permutation.py; samepermutationargument.go:103-164): a Neff-style
-reduction of "A commits to a permutation of as" to a grand product."""
+"""Same-permutation argument (go_curdleproofs_tpu/models/
+same_permutation.py; samepermutationargument.go of the Go reference): a
+Neff-style reduction of "A commits to a permutation of as, the one that M
+commits to" to a grand product."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import BinaryIO, List
+from typing import BinaryIO, List, Sequence
 
-from go_curdleproofs_tpu.utils import field_host as fh
-from go_curdleproofs_tpu.utils.field_host import Affine
-from go_curdleproofs_tpu.utils.rand import Rand
-from go_curdleproofs_tpu.utils.transcript import Transcript
+import torch
 
 from ..utils import codec
+from ..utils import field_host as fh
+from ..utils.field_host import Affine
+from ..utils.rand import Rand
+from ..utils.transcript import Transcript
 from . import grand_product
 from .msm_accumulator import MsmAccumulator
 
@@ -33,10 +35,54 @@ class Proof:
     b: Affine
     gpa_proof: grand_product.Proof
 
+    def serialize(self, w: BinaryIO) -> None:
+        codec.Encoder(w).write_point(self.b)
+        self.gpa_proof.serialize(w)
+
     @classmethod
     def from_reader(cls, r: BinaryIO) -> "Proof":
         b = codec.Decoder(r).read_point()
         return cls(b, grand_product.Proof.from_reader(r))
+
+
+def permute(vs: Sequence, perm: Sequence[int]) -> list:
+    """ret[i] = vs[perm[i]] (common/util.go:37-43 of the Go reference)."""
+    return [vs[p] for p in perm]
+
+
+def prove(crs: CRS, A: Affine, M: Affine, as_: List[int],
+          permutation: Sequence[int], rs_a: List[int], rs_m: List[int],
+          transcript: Transcript, rand: Rand, *,
+          device: torch.device) -> Proof:
+    """samepermutationargument.go:32-101."""
+    # Step 1
+    transcript.append_points(LABEL_STEP1, A, M)
+    transcript.append_scalars(LABEL_STEP1, *as_)
+    alpha = transcript.get_and_append_challenge(LABEL_ALPHA)
+    beta = transcript.get_and_append_challenge(LABEL_BETA)
+
+    # Step 2: bs[i] = a_perm(i) + alpha*perm(i) + beta; p = prod bs
+    permuted_as = permute(as_, permutation)
+    bs = []
+    p = 1
+    for i, perm_i in enumerate(permutation):
+        b_i = (alpha * perm_i + permuted_as[i] + beta) % fh.R
+        bs.append(b_i)
+        p = p * b_i % fh.R
+
+    # <beta..beta, Gs> == beta * (sum Gs): two host scalar multiplications
+    # instead of a device MSM (the group element is identical)
+    gsum = None
+    for g in crs.gs:
+        gsum = fh.g1_add(gsum, g)
+    B = fh.g1_add(A, fh.g1_add(fh.g1_mul(M, alpha), fh.g1_mul(gsum, beta)))
+
+    rs_b = [(alpha * rm + ra) % fh.R for ra, rm in zip(rs_a, rs_m)]
+
+    gpa_proof = grand_product.prove(
+        grand_product.CRS(crs.gs, crs.hs, crs.h), B, p, bs, rs_b,
+        transcript, rand, device=device)
+    return Proof(B, gpa_proof)
 
 
 def verify(proof: Proof, crs: CRS, gsum: Affine, hsum: Affine,

@@ -1,11 +1,14 @@
-"""Whisk SSLE verifier side over the port (go_curdleproofs_tpu/models/
-whisk.py; whisk/whisk.go:20-61, 116-146): fixed sizes N=128 / ELL=124,
-4576-byte shuffle proofs, 128-byte tracker proofs.
+"""Whisk SSLE protocol layer over the port (go_curdleproofs_tpu/models/
+whisk.py; whisk/whisk.go and whisk/types.go of the Go reference): fixed
+sizes N=128 / ELL=124, 4576-byte shuffle proofs, 128-byte Schnorr tracker
+proofs, 48-byte compressed tracker points.
 
 A shuffle verification runs two device programs: one batched decode of
-every proof and tracker point, and the accumulator's final MSM. The
-tracker proof is a Schnorr check of a handful of host group operations and
-touches no device.
+every proof and tracker point, and the accumulator's final MSM. Generating
+a shuffle proof decodes the trackers in one batch, shuffles them with one
+batched scalar multiplication and runs the host-orchestrated prover. The
+tracker proof is a Schnorr argument of a handful of host group operations
+and touches no device.
 """
 
 from __future__ import annotations
@@ -16,12 +19,12 @@ from typing import List, Tuple
 
 import torch
 
-from go_curdleproofs_tpu.utils import field_host as fh
-from go_curdleproofs_tpu.utils.field_host import Affine
-from go_curdleproofs_tpu.utils.rand import Rand
-from go_curdleproofs_tpu.utils.transcript import Transcript
-
+from ..ops import codec_batch
 from ..utils import codec
+from ..utils import field_host as fh
+from ..utils.field_host import Affine
+from ..utils.rand import Rand
+from ..utils.transcript import Transcript
 from . import curdleproof
 
 G1POINT_SIZE = 48
@@ -51,10 +54,50 @@ class WhiskTracker:
         return codec.g1_from_bytes(self.r_g), codec.g1_from_bytes(self.k_r_g)
 
 
+def expected_shuffle_proof_size(ell: int = ELL) -> int:
+    """Wire size of a Whisk shuffle proof for `ell` trackers.
+
+    The encoded content for ell=124 is 4536 bytes; the Go reference stores
+    it in a fixed zero-padded [4576]byte array (whisk/types.go:21, 53-72:
+    Serialize copies into it, FromReader ignores the tail), so the canonical
+    ell pads to WHISK_SHUFFLE_PROOF_SIZE. n = ell + N_BLINDERS is the
+    (power-of-two) folding length; each of the 10 L/R slices has log2(n)
+    points and a u32 prefix."""
+    if ell == ELL:
+        return WHISK_SHUFFLE_PROOF_SIZE
+    n = ell + curdleproof.N_BLINDERS
+    if n & (n - 1) != 0:
+        raise ValueError("ell + 4 must be a power of two")
+    rounds = n.bit_length() - 1
+    size = 48          # M
+    size += 48 + 96 + 96 + 48 + 48        # A, T, U, R, S
+    size += 48                            # sameperm B
+    size += 48 + 32                       # gpa C, Rp
+    size += 96 + 4 * (4 + rounds * 48) + 64   # ipa: B_c,B_d, 4 slices, c0,d0
+    size += 96 + 96 + 3 * 32              # samescalar A, B, z_k, z_t, z_u
+    size += 3 * 48 + 6 * (4 + rounds * 48) + 32  # samemsm
+    return size
+
+
 @dataclass
 class WhiskShuffleProof:
     m: Affine
     proof: curdleproof.Proof
+
+    def serialize(self) -> bytes:
+        buf = io.BytesIO()
+        codec.Encoder(buf).write_point(self.m)
+        self.proof.serialize(buf)
+        out = buf.getvalue()
+        ell = (1 << len(self.proof.proof_same_multiscalar.l_a)) \
+            - curdleproof.N_BLINDERS
+        expected = expected_shuffle_proof_size(ell)
+        if len(out) < expected:
+            out = out + b"\x00" * (expected - len(out))  # fixed-array padding
+        if len(out) != expected:
+            raise ValueError(
+                f"whisk shuffle proof size {len(out)} != {expected}")
+        return out
 
     @classmethod
     def from_bytes(cls, data: bytes,
@@ -94,16 +137,71 @@ def _pool_tracker_sets(pre_st, post_st, pool):
     return lp[:n], lp[n:2 * n], lp[2 * n:3 * n], lp[3 * n:]
 
 
+def generate_whisk_shuffle_proof(
+        crs: CRS, pre_trackers: List[WhiskTracker], rand: Rand, *,
+        device: torch.device) -> Tuple[List[WhiskTracker], bytes]:
+    """whisk/whisk.go:63-114: (post trackers, proof bytes). ell is
+    len(pre_trackers): ELL for the Whisk deployment, smaller powers of two
+    minus 4 in tests."""
+    permutation = rand.generate_permutation(len(pre_trackers))
+    k = rand.get_fr()
+
+    n = len(pre_trackers)
+    pts = codec_batch.batch_decompress(
+        [t.r_g for t in pre_trackers] + [t.k_r_g for t in pre_trackers],
+        device=device)
+    Rs, Ss = pts[:n], pts[n:]
+
+    Ts, Us, M, rs_m = curdleproof.shuffle_permute_commit(
+        crs.gs, crs.hs, Rs, Ss, permutation, k, rand, device=device)
+
+    proof = curdleproof.prove(crs, Rs, Ss, Ts, Us, M, permutation, k, rs_m,
+                              rand, device=device)
+    proof_bytes = WhiskShuffleProof(M, proof).serialize()
+    post_trackers = [WhiskTracker.from_points(t, u) for t, u in zip(Ts, Us)]
+    return post_trackers, proof_bytes
+
+
 @dataclass
 class TrackerProof:
     a: Affine
     b: Affine
     s: int
 
+    def serialize(self) -> bytes:
+        buf = io.BytesIO()
+        e = codec.Encoder(buf)
+        e.write_point(self.a)
+        e.write_point(self.b)
+        e.write_fr(self.s)
+        out = buf.getvalue()
+        if len(out) != TRACKER_PROOF_SIZE:
+            raise ValueError(f"tracker proof size {len(out)}")
+        return out
+
     @classmethod
     def from_bytes(cls, data: bytes) -> "TrackerProof":
         d = codec.Decoder(io.BytesIO(data))
         return cls(d.read_point(), d.read_point(), d.read_fr())
+
+
+def generate_whisk_tracker_proof(tracker: WhiskTracker, k: int,
+                                 rand: Rand) -> bytes:
+    """Schnorr discrete-log-equality proof that kG and krG share k
+    (whisk/whisk.go:149-176)."""
+    r_g, k_r_g = tracker.get_points()
+    k_g = fh.g1_mul(fh.G1_GEN, k)
+    blinder = rand.get_fr()
+    a = fh.g1_mul(fh.G1_GEN, blinder)
+    b = fh.g1_mul(r_g, blinder)
+
+    transcript = Transcript(LABEL_WHISK_OPENING_PROOF)
+    transcript.append_points(LABEL_TRACKER_OPENING_PROOF,
+                             k_g, fh.G1_GEN, k_r_g, r_g, a, b)
+    challenge = transcript.get_and_append_challenge(
+        LABEL_TRACKER_OPENING_PROOF_CHALLENGE)
+    s = (blinder - challenge * k) % fh.R
+    return TrackerProof(a, b, s).serialize()
 
 
 def is_valid_whisk_tracker_proof(tracker: WhiskTracker, k_comm: bytes,

@@ -3,8 +3,8 @@
 The verifier decodes every compressed point of a proof and its trackers in
 one batched program: the sqrt ladder (the `pow_fixed` kernel), on-curve
 validation, lexicographic y selection, and Scott's half-width subgroup test
-[lambda]P == phi(P) (go_curdleproofs_tpu/ops/glv.py), then one fetch. Byte
-semantics match `codec.g1_from_bytes`, including its ValueErrors.
+[lambda]P == phi(P) (ops/glv.py), then one fetch. Byte semantics match
+`codec.g1_from_bytes`, including its ValueErrors.
 """
 
 from __future__ import annotations
@@ -14,11 +14,9 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from go_curdleproofs_tpu.ops import glv
-from go_curdleproofs_tpu.utils import field_host as fh
-from go_curdleproofs_tpu.utils.field_host import Affine
-
-from . import curve, fp, kernels
+from ..utils import field_host as fh
+from ..utils.field_host import Affine
+from . import curve, fp, glv
 
 _M_MASK = 0b111 << 5
 _M_COMPRESSED_SMALLEST = 0b100 << 5
@@ -49,7 +47,7 @@ def _decode_program(xe: torch.Tensor,
     device = xe.device
     rhs = fp.add(fp.mul(fp.mul(xe, xe), xe),
                  fp.constant(fh.B_COEFF, xe.shape[:-1], device=device))
-    cand = kernels.pow_fixed(rhs, (fh.P + 1) // 4)
+    cand = fp.sqrt_candidate(rhs)
     on_curve = fp.is_zero(fp.sub(fp.mul(cand, cand), rhs))
     flip = fp.lex_gt_half(cand) != want_largest
     y = fp.where(flip, fp.neg(cand), cand)

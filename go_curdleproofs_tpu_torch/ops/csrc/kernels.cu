@@ -1,5 +1,7 @@
-// The verifier's three device kernels, written for Hopper (sm_90a), with a
+// The ladder and the two MSM kernels, written for Hopper (sm_90a), with a
 // plain C launcher each for ctypes (go_curdleproofs_tpu_torch/ops/kernels.py).
+// The pointwise kernels (multiply, point add, point double) are in
+// pointwise.cu.
 //
 // Every launcher enqueues on the stream it is given, allocates nothing, and
 // returns cudaGetLastError() so that a refused launch reaches the caller.

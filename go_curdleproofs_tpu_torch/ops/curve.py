@@ -1,4 +1,5 @@
-"""BLS12-381 G1 points and the verifier's MSMs over torch tensors.
+"""BLS12-381 G1 points, the verifier's and the prover's MSMs over torch
+tensors.
 
 Points are homogeneous projective (X : Y : Z) under the complete formulas of
 Renes-Costello-Batina 2016 (a = 0, b3 = 12), as in the JAX package's
@@ -6,26 +7,29 @@ ops/curve.py: no branch for infinity or doubling. A `PointVec` holds three
 `[..., 12]` element tensors (ops/fp.py).
 
 Scalar multiplication and MSM are GLV-decomposed with signed 4-bit digits
-(go_curdleproofs_tpu.ops.glv, imported as is): lanes extend 2x (lane 2i =
-P_i, lane 2i+1 = phi(P_i)), 33 windows, 9-entry multiples tables with free
-negation. Three kernels carry the heavy phases (ops/kernels.py): the MSM
-wide phase (`msm_select_reduce`) and the Horner tail (`windowed_combine`);
-table builds and the few pointwise adds around them are plain torch ops,
-as the JAX package leaves them to XLA.
+(ops/glv.py): lanes extend 2x (lane 2i = P_i, lane 2i+1 = phi(P_i)), 33
+windows, 9-entry multiples tables with free negation. Every point
+operation goes through a kernel wrapper of ops/kernels.py: `add` and
+`double` (table builds, the GLV halves' add, the add of static and dynamic
+window sums) through `point_add` / `point_double`, the MSM wide phase
+through `msm_select_reduce`, the Horner tail through `windowed_combine`.
+
+The prover's device API is `StackedVec.msm_many` (one wide-phase launch
+over all (job, base row) terms, one Horner launch, one fetch) behind the
+scalar-side folding view `FoldedBases`, plus `msm_batch` and
+`batch_scalar_mul`.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Sequence
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from go_curdleproofs_tpu.ops import glv
-from go_curdleproofs_tpu.utils import field_host as fh
-from go_curdleproofs_tpu.utils.field_host import Affine
-
-from . import fp, kernels
+from ..utils import field_host as fh
+from ..utils.field_host import Affine
+from . import fp, glv, kernels
 
 B3 = 12                         # 3*b for y^2 = x^3 + 4
 WINDOW_BITS = glv.WINDOW_BITS
@@ -54,44 +58,16 @@ def infinity(shape=(), *, device: torch.device) -> PointVec:
                     fp.zeros(shape, device=device))
 
 
-def _mul_stacked(avec, bvec) -> List[torch.Tensor]:
-    """Independent products as ONE stacked field multiply."""
-    return list(fp.mul(torch.stack(avec), torch.stack(bvec)).unbind(0))
-
-
 def add(p: PointVec, q: PointVec) -> PointVec:
-    """Complete projective addition (RCB16 algorithm 7, a = 0), two-stage."""
-    x1, y1, z1 = p
-    x2, y2, z2 = q
-    t0, t1, t2, m4, m5, m6 = _mul_stacked(
-        [x1, y1, z1, fp.add(x1, y1), fp.add(y1, z1), fp.add(x1, z1)],
-        [x2, y2, z2, fp.add(x2, y2), fp.add(y2, z2), fp.add(x2, z2)])
-    t3 = fp.sub(m4, fp.add(t0, t1))
-    t4 = fp.sub(m5, fp.add(t1, t2))
-    y3 = fp.sub(m6, fp.add(t0, t2))
-    t0_3 = fp.add(fp.add(t0, t0), t0)
-    t2b = fp.mul_small(t2, B3)
-    z3 = fp.add(t1, t2b)
-    t1m = fp.sub(t1, t2b)
-    y3b = fp.mul_small(y3, B3)
-    n1, n2, n3, n4, n5, n6 = _mul_stacked(
-        [t4, t3, y3b, t1m, t0_3, z3],
-        [y3b, t1m, t0_3, z3, t3, t4])
-    return PointVec(fp.sub(n2, n1), fp.add(n4, n3), fp.add(n6, n5))
+    """Complete projective addition (RCB16 algorithm 7, a = 0) through the
+    `point_add` kernel wrapper: contiguous coordinates of one shape."""
+    return kernels.point_add(p, q)
 
 
 def double(p: PointVec) -> PointVec:
-    """Complete projective doubling (RCB16 algorithm 9, a = 0), two-stage."""
-    x, y, z = p
-    t0, t1, t2r, m4 = _mul_stacked([y, y, z, x], [y, z, z, y])
-    t2 = fp.mul_small(t2r, B3)
-    t00 = fp.add(t0, t0)
-    t04 = fp.add(t00, t00)
-    z3s = fp.add(t04, t04)                               # 8*t0
-    y3s = fp.add(t0, t2)
-    t0m = fp.sub(t0, fp.add(fp.add(t2, t2), t2))        # t0 - 3*t2
-    n1, n2, n3, n4 = _mul_stacked([t2, t0m, t1, t0m], [z3s, y3s, z3s, m4])
-    return PointVec(fp.add(n4, n4), fp.add(n1, n2), n3)
+    """Complete projective doubling (RCB16 algorithm 9, a = 0) through the
+    `point_double` kernel wrapper."""
+    return kernels.point_double(p)
 
 
 def neg(p: PointVec) -> PointVec:
@@ -136,6 +112,15 @@ def to_affine_host(p: PointVec) -> List[Affine]:
     return out
 
 
+def to_affine_host_xy(p: PointVec) -> List[Affine]:
+    """Projective -> host affine with the normalisation done on the device
+    (compress_dev.compress_xy: the inverse ladder kernel, two products):
+    96 bytes per point come back and the host only recomposes ints."""
+    from . import compress_dev
+    rows = compress_dev.compress_xy(p).cpu().numpy()
+    return [compress_dev.decode_xy_host(r) for r in rows]
+
+
 # -- GLV tables, select and reduce ----------------------------------------------
 
 def scalars_to_digits(scalars: Sequence[int]) -> np.ndarray:
@@ -168,9 +153,9 @@ def extend_table_glv(table: PointVec) -> PointVec:
 
 
 def build_table(p: PointVec) -> PointVec:
-    """Multiples table [9, ..., n]: entry d = d*P_i, built in three batched
-    adds of widths 1, 2, 4 (d2; d3, d4; d5..d8)."""
-    d = [None, p, add(p, p)]
+    """Multiples table [9, ..., n]: entry d = d*P_i, built in one double
+    and two batched adds of widths 2 and 4 (d2; d3, d4; d5..d8)."""
+    d = [None, p, double(p)]
     d += _unstack_points(add(_stack_points([d[2], d[2]]),
                              _stack_points([p, d[2]])))
     d += _unstack_points(add(_stack_points([d[4]] * 4),
@@ -195,10 +180,13 @@ def table_select_windows(table: PointVec, digits: torch.Tensor) -> PointVec:
                     pick(table.z))
 
 
-def reduce_points_axis(cur: PointVec, chunk: int = 0) -> PointVec:
+def reduce_points_axis(cur: PointVec, chunk: int = 0, *,
+                       add: Callable[[PointVec, PointVec], PointVec]
+                       ) -> PointVec:
     """Sum [..., m] points over the last batch axis by a halving tree (an
-    odd level pads with one infinity). chunk > 0 bounds the points per add
-    (slicing along that axis) to bound the temporaries."""
+    odd level pads with one infinity) of `add` calls on slices (views).
+    chunk > 0 bounds the points per add (slicing along that axis) to bound
+    the temporaries."""
     m = cur.x.shape[-2]
     rows = cur.x[..., 0, 0].numel()
     while m > 1:
@@ -235,8 +223,8 @@ def horner(windows: PointVec) -> PointVec:
 
 def _halves_add(ext: PointVec) -> PointVec:
     """Fold the interleaved GLV lanes back: out[i] = ext[2i] + ext[2i+1]."""
-    return add(pmap(lambda t: t[..., 0::2, :], ext),
-               pmap(lambda t: t[..., 1::2, :], ext))
+    return add(pmap(lambda t: t[..., 0::2, :].contiguous(), ext),
+               pmap(lambda t: t[..., 1::2, :].contiguous(), ext))
 
 
 def scalar_mul_device(points: PointVec, digits: torch.Tensor) -> PointVec:
@@ -255,6 +243,14 @@ def msm_rows_windows_from_table(table: PointVec, digits: torch.Tensor,
     return kernels.msm_select_reduce(tab, digits.contiguous())
 
 
+def msm_rows_points_from_table(table: PointVec, digits: torch.Tensor,
+                               rows: Sequence[int]) -> PointVec:
+    """Per-row MSM jobs straight to their [m] final points on the device:
+    the wide phase (`msm_select_reduce` at m jobs), then the Horner tail
+    (`windowed_combine` at m rows)."""
+    return horner(msm_rows_windows_from_table(table, digits, rows))
+
+
 # -- host-facing APIs ------------------------------------------------------------
 
 def _pad_pow2(n: int, minimum: int = 8) -> int:
@@ -264,13 +260,20 @@ def _pad_pow2(n: int, minimum: int = 8) -> int:
     return m
 
 
+MsmTerm = Tuple[int, Sequence[int], int]      # (base row, scalars, offset)
+
+
 class StackedVec:
     """k base rows [k, n] on a device, with their GLV-extended multiples
-    table [9, k, 2n] built once on first use."""
+    table [9, k, 2n] built once on first use. The folding arguments (IPA:
+    [Gs, Gs']; same-multiscalar: [G, T, U]) keep their bases stacked so a
+    round's cross-term MSMs are one `msm_many` call."""
 
-    def __init__(self, pv: PointVec):
+    def __init__(self, pv: PointVec, n_valid: Optional[int] = None):
         self.pv = pv
+        self.k = pv.x.shape[0]
         self.width = pv.x.shape[1]
+        self.n_valid = self.width if n_valid is None else n_valid
         self._table = None
 
     def table(self) -> PointVec:
@@ -289,7 +292,112 @@ class StackedVec:
         for v in vecs:
             flat.extend(list(v) + [None] * (n - len(v)))
         return cls(pmap(lambda t: t.reshape(len(vecs), n, fp.NWORDS),
-                        from_affine_host(flat, device=device)))
+                        from_affine_host(flat, device=device)), widest)
+
+    def msm_many(self, jobs: Sequence[Sequence[MsmTerm]]) -> List[Affine]:
+        """jobs[j] = [(base_row, scalars, offset), ...] summed into output
+        j: out[j] = sum_i <scalars_i, row b_i[off_i : off_i + len]>. Every
+        term is one MSM job over its base row: ONE wide-phase launch over
+        all terms, ONE Horner launch, ONE fetch, then the host adds each
+        term's point to its owner."""
+        digit_rows, rows_idx, owners = [], [], []
+        for j, terms in enumerate(jobs):
+            for (row, scalars, offset) in terms:
+                if offset < 0 or offset + len(scalars) > self.width:
+                    raise ValueError("msm_many: scalars run past the row")
+                sc = [0] * self.width
+                sc[offset:offset + len(scalars)] = scalars
+                digit_rows.append(scalars_to_digits(sc))
+                rows_idx.append(row)
+                owners.append(j)
+        res: List[Affine] = [None] * len(jobs)
+        if not owners:
+            return res
+        device = self.pv.x.device
+        out = msm_rows_points_from_table(
+            self.table(), _digits(np.stack(digit_rows), device), rows_idx)
+        for j, pt in zip(owners, to_affine_host(out)):
+            res[j] = fh.g1_add(res[j], pt)
+        return res
+
+
+class FoldedBases:
+    """Lazy folding view over a StackedVec: folds and per-lane rescales are
+    scalar-side transforms, not device base updates.
+
+    The folding arguments update bases G' = G_lo + gamma*G_hi every round
+    (innerproductargument.go:155-166, samemultiscalarargument.go:85-140 of
+    the Go reference). Since <v, G'> = <v ++ gamma*v, G>, the prover keeps
+    the ORIGINAL bases on the device (the multiples table is built once
+    per argument) and pushes every fold into the scalars (O(n) host Fr
+    products per round), with byte-identical proofs.
+
+    A logical row maps to a base row plus an optional per-lane diagonal
+    multiplier d (row = d[i]*base[i]): <v, d.base> = <v*d, base>. The
+    grand-product argument uses this for its rescaled bases
+    Gs' = Gs*beta^-i (grandproductargument.go:94-103): no device rescale.
+    """
+
+    def __init__(self, sv: StackedVec, rows: Optional[Sequence[int]] = None,
+                 diags: Optional[Dict[int, Sequence[int]]] = None,
+                 gammas: Optional[List[List[int]]] = None,
+                 n_valid: Optional[int] = None):
+        self.sv = sv
+        self.rows = list(rows) if rows is not None else list(range(sv.k))
+        self.k = len(self.rows)
+        self.width = sv.width
+        self.diags = diags or {}          # logical row -> per-lane multiplier
+        self.gammas = gammas or []        # per round: one gamma per logical row
+        self.n_valid = sv.n_valid if n_valid is None else n_valid
+
+    @classmethod
+    def from_affine(cls, vecs: Sequence[Sequence[Affine]], *,
+                    device: torch.device, pad_to: int = 0) -> "FoldedBases":
+        return cls(StackedVec.from_affine(vecs, device=device, pad_to=pad_to))
+
+    def fold(self, gammas) -> "FoldedBases":
+        """Record a fold out[i] = in[i] + gamma_row * in[i + n/2]; no device
+        work. `gammas` is one scalar or one per logical row."""
+        if not isinstance(gammas, (list, tuple)):
+            gammas = [gammas] * self.k
+        return FoldedBases(self.sv, self.rows, self.diags,
+                           self.gammas + [list(gammas)], self.n_valid // 2)
+
+    def _expand(self, row: int, scalars: Sequence[int],
+                offset: int) -> List[int]:
+        """Lift (scalars at offset, current fold level) to level-0 scalars."""
+        u = [0] * self.n_valid
+        for i, s in enumerate(scalars):
+            u[offset + i] = int(s) % fh.R
+        for per_row in reversed(self.gammas):
+            g = per_row[row]
+            u = u + [s * g % fh.R for s in u]
+        d = self.diags.get(row)
+        if d is not None:
+            u = [s * di % fh.R
+                 for s, di in zip(u, list(d) + [1] * (len(u) - len(d)))]
+        return u
+
+    def msm_many(self, jobs: Sequence[Sequence[MsmTerm]]) -> List[Affine]:
+        return self.sv.msm_many(
+            [[(self.rows[r], self._expand(r, sc, off), 0)
+              for (r, sc, off) in terms] for terms in jobs])
+
+
+def msm_batch(jobs: Sequence[Tuple[Sequence[Affine], Sequence[int]]], *,
+              device: torch.device) -> List[Affine]:
+    """Independent small MSMs in one device call and one fetch:
+    jobs[j] = (points_j, scalars_j), every job padded to a common width."""
+    jobs = [(list(p), list(sc)) for p, sc in jobs]
+    if not jobs:
+        return []
+    for p, sc in jobs:
+        if len(p) != len(sc):
+            raise ValueError("msm_batch: len(points) != len(scalars)")
+    width = _pad_pow2(max(len(p) for p, _ in jobs))
+    sv = StackedVec.from_affine([p for p, _ in jobs], device=device,
+                                pad_to=width)
+    return sv.msm_many([[(j, sc, 0)] for j, (_, sc) in enumerate(jobs)])
 
 
 def _dynamic_windows(points: Sequence[Affine], scalars: Sequence[int],
@@ -342,4 +450,4 @@ def batch_scalar_mul(points: Sequence[Affine], scalars: Sequence[int], *,
                           device=device)
     sc = list(scalars) + [0] * (n - len(scalars))
     out = scalar_mul_device(pv, _digits(scalars_to_digits(sc), device))
-    return to_affine_host(out)[: len(points)]
+    return to_affine_host_xy(out)[: len(points)]

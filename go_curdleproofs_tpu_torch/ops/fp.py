@@ -6,6 +6,14 @@ R = 2^384, always fully reduced below p. The CUDA kernels
 (ops/csrc/fp.cuh) compute in exactly this form; the plain ops here are the
 same arithmetic written as torch integer ops, so they run on any device.
 
+`mul` (and what is built on it: `square`, `mul_small`, `from_mont`) and the
+fixed-exponent ladders `inv` and `sqrt_candidate` go through the kernel
+wrappers of ops/kernels.py: a CUDA tensor launches the `mont_mul` /
+`pow_fixed` kernel, a CPU tensor runs `mul_plain` / `pow_fixed_plain`. The
+`*_plain` functions never reach a kernel on any device: the kernels are held
+against them. add, sub, neg and the comparisons have no kernel of their own
+(the TPU package left them to XLA) and are plain torch ops everywhere.
+
 torch has no usable uint64 arithmetic, so the plain ops split each word into
 two 16-bit half-limbs held in int64: a limb product is < 2^32 and a 24-term
 column sum < 2^37. Carries resolve without a sequential loop: a few rounds
@@ -26,7 +34,7 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
-from go_curdleproofs_tpu.utils.field_host import P
+from ..utils.field_host import P
 
 NWORDS = 12                 # 32-bit words per element
 NLIMBS = 24                 # 16-bit half-limbs per element (plain ops)
@@ -56,7 +64,6 @@ def _consts(device: torch.device) -> SimpleNamespace:
         nprime=t(_limbs_of((-pow(P, -1, 1 << R_BITS)) % (1 << R_BITS))),
         r_minus_p=t(_limbs_of((1 << R_BITS) - P)),
         r_minus_half1=t(_limbs_of((1 << R_BITS) - half_plus_one)),
-        one_plain=t(_limbs_of(1)),
         diag=t(diag),                           # column of limb product (i, j)
         idx=t(list(range(2 * n + 1))),
         e0=t([1] + [0] * (n - 1)),
@@ -193,12 +200,25 @@ def sub(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _join(_add_l(_split(a), _neg_l(_split(b))))
 
 
-def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product in torch integer ops, on any device (shapes
+    broadcast)."""
     return _join(_mont_l(_split(a), _split(b)))
+
+
+def mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Montgomery product through the `mont_mul` kernel wrapper. Operands
+    are contiguous and of one shape, or either is a single [12] element."""
+    from . import kernels
+    return kernels.mont_mul(a, b)
 
 
 def square(a: torch.Tensor) -> torch.Tensor:
     return mul(a, a)
+
+
+def mul_small_plain(a: torch.Tensor, c: int) -> torch.Tensor:
+    return mul_plain(a, _row(c, a.device))
 
 
 def mul_small(a: torch.Tensor, c: int) -> torch.Tensor:
@@ -207,26 +227,52 @@ def mul_small(a: torch.Tensor, c: int) -> torch.Tensor:
     return mul(a, _row(c, a.device))
 
 
-def pow_fixed(a: torch.Tensor, exponent: int) -> torch.Tensor:
-    """a^exponent by MSB-first square-and-multiply (exponent >= 1)."""
+def pow_fixed_plain(a: torch.Tensor, exponent: int) -> torch.Tensor:
+    """a^exponent by MSB-first square-and-multiply (exponent >= 1), in
+    plain products on any device."""
     if exponent < 1:
         raise ValueError("pow_fixed needs an exponent >= 1")
     acc = a
     for bit in bin(exponent)[3:]:
-        acc = mul(acc, acc)
+        acc = mul_plain(acc, acc)
         if bit == "1":
-            acc = mul(acc, a)
+            acc = mul_plain(acc, a)
     return acc
 
 
 def inv(a: torch.Tensor) -> torch.Tensor:
-    """Fermat inverse a^(p-2); 0 -> 0."""
-    return pow_fixed(a, P - 2)
+    """Fermat inverse a^(p-2) through the `pow_fixed` kernel wrapper;
+    0 -> 0."""
+    from . import kernels
+    return kernels.pow_fixed(a, P - 2)
 
 
 def sqrt_candidate(a: torch.Tensor) -> torch.Tensor:
     """a^((p+1)/4): a square root of a whenever one exists (p = 3 mod 4)."""
-    return pow_fixed(a, (P + 1) // 4)
+    from . import kernels
+    return kernels.pow_fixed(a, (P + 1) // 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _one_plain(device: torch.device) -> torch.Tensor:
+    """The integer 1 as raw words (not in Montgomery form)."""
+    one = torch.zeros(NWORDS, dtype=DTYPE, device=device)
+    one[0] = 1
+    return one
+
+
+def from_mont(a: torch.Tensor) -> torch.Tensor:
+    """[..., 12] elements -> the little-endian words of their canonical
+    values: one Montgomery product with the plain integer 1."""
+    return mul(a, _one_plain(a.device))
+
+
+def canonical_bytes_be(a: torch.Tensor) -> torch.Tensor:
+    """[..., 12] elements -> [..., 48] uint8: the canonical value
+    big-endian, as the wire format writes a coordinate."""
+    w = from_mont(a).flip(-1).to(torch.int64) & 0xFFFFFFFF
+    shifts = torch.tensor([24, 16, 8, 0], dtype=torch.int64, device=a.device)
+    return ((w[..., None] >> shifts) & 0xFF).flatten(-2).to(torch.uint8)
 
 
 def where(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -256,6 +302,5 @@ def lex_gt_half(a: torch.Tensor) -> torch.Tensor:
     """[...] bool: canonical value of a > (p-1)/2 (gnark's
     LexicographicallyLargest; a tie is not largest)."""
     k = _consts(a.device)
-    v = _mont_l(_split(a), k.one_plain.expand(a.shape[:-1] + (NLIMBS,)))
-    _, ge = _resolve(v + k.r_minus_half1)        # v >= (p-1)/2 + 1
-    return ge.bool()
+    _, ge = _resolve(_split(from_mont(a)) + k.r_minus_half1)
+    return ge.bool()                             # value >= (p-1)/2 + 1

@@ -1,18 +1,23 @@
-"""The verifier's three device kernels: wrappers, plain versions, counters.
+"""The port's six device kernels: wrappers, plain versions, counters.
 
-Each kernel (CUDA C++ for sm_90a, ops/csrc/kernels.cu) has
+Each kernel (CUDA C++ for sm_90a; ops/csrc/pointwise.cu holds mont_mul,
+point_add and point_double, ops/csrc/kernels.cu holds pow_fixed,
+windowed_combine and msm_select_reduce) has
 
   * a wrapper that checks its tensors and, for CUDA tensors, launches the
     kernel on PyTorch's current stream, raising if the launch is refused;
     for CPU tensors it runs the plain version instead. There is no other
     route: a CUDA tensor never falls back to the plain version;
   * a plain version in torch integer ops, exact, on any device: the CPU path,
-    and the reference that the kernel is held against on the card;
+    and the reference that the kernel is held against on the card. A plain
+    version calls only plain versions (`fp.mul_plain`, `point_add_plain`,
+    ...), never a wrapper, so on the card it stays independent of every
+    kernel;
   * a launch counter (`launches`), incremented where the kernel launches.
 
-The CUDA sources build with nvcc into `go_curdleproofs_tpu_torch/_build/
-libcurdle_kernels.so` at first use, again whenever the sources' hash
-changes, and load with ctypes.
+The CUDA sources build with nvcc, one process per .cu file started
+together, into `go_curdleproofs_tpu_torch/_build/libcurdle_<file>.so` at
+first use, again whenever the sources' hash changes, and load with ctypes.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from types import SimpleNamespace
 from typing import Dict
 
 import torch
@@ -31,13 +37,19 @@ import torch
 from . import curve, fp
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("fp.cuh", "kernels.cu")
+_CU_SOURCES = ("kernels.cu", "pointwise.cu")      # one library each
+_SOURCES = ("fp.cuh",) + _CU_SOURCES
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
-LIB_NAME = "libcurdle_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-KERNEL_NAMES = ("pow_fixed", "windowed_combine", "msm_select_reduce")
+KERNEL_NAMES = ("mont_mul", "point_add", "point_double", "pow_fixed",
+                "windowed_combine", "msm_select_reduce")
+# the .cu file that holds each kernel
+KERNEL_SOURCE = {"mont_mul": "pointwise.cu", "point_add": "pointwise.cu",
+                 "point_double": "pointwise.cu", "pow_fixed": "kernels.cu",
+                 "windowed_combine": "kernels.cu",
+                 "msm_select_reduce": "kernels.cu"}
 launches: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 
@@ -71,42 +83,70 @@ def _nvcc() -> str:
     return found
 
 
-def build(force: bool = False) -> Path:
-    """Compile the kernels into BUILD_DIR unless a build of the current
-    sources is already there. Returns the library path; the compiler's
-    report (registers, spills per kernel) goes to BUILD_DIR/nvcc.log."""
-    lib = BUILD_DIR / LIB_NAME
-    stamp = BUILD_DIR / (LIB_NAME + ".sha256")
+def _lib_path(cu: str) -> Path:
+    return BUILD_DIR / f"libcurdle_{Path(cu).stem}.so"
+
+
+def build(force: bool = False) -> Dict[str, Path]:
+    """Compile each .cu source into its own library in BUILD_DIR, all nvcc
+    processes running together, unless a build of the current sources is
+    already there. Returns {source: library path}; the compiler's reports
+    (registers, spills per kernel) go to BUILD_DIR/nvcc.log."""
+    libs = {cu: _lib_path(cu) for cu in _CU_SOURCES}
+    stamp = BUILD_DIR / "kernels.sha256"
     digest = _sources_hash()
-    if (not force and lib.exists() and stamp.exists()
-            and stamp.read_text() == digest):
-        return lib
+    if (not force and stamp.exists() and stamp.read_text() == digest
+            and all(lib.exists() for lib in libs.values())):
+        return libs
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / "kernels.cu")]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    (BUILD_DIR / "nvcc.log").write_text(res.stdout + res.stderr)
-    os.replace(tmp, lib)
+    nvcc = _nvcc()
+    jobs = []
+    for cu, lib in libs.items():
+        tmp = BUILD_DIR / f"{lib.name}.{os.getpid()}.tmp"
+        log = BUILD_DIR / f"nvcc.{Path(cu).stem}.log"
+        with open(log, "w") as out:
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / cu)],
+                stdout=out, stderr=subprocess.STDOUT)
+        jobs.append((cu, lib, tmp, log, proc))
+    codes = {cu: proc.wait() for cu, _, _, _, proc in jobs}
+    report = "".join(f"== {cu}\n{log.read_text()}"
+                     for cu, _, _, log, _ in jobs)
+    (BUILD_DIR / "nvcc.log").write_text(report)
+    if any(codes.values()):
+        raise RuntimeError(f"nvcc failed ({codes}):\n{report}")
+    for _, lib, tmp, _, _ in jobs:
+        os.replace(tmp, lib)
     stamp.write_text(digest)
-    return lib
+    return libs
 
 
-def _load():
+def _load() -> SimpleNamespace:
+    """The launchers of both libraries, with their argument types."""
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.curdle_pow_fixed.argtypes = [
+            paths = build()
+            main = ctypes.CDLL(str(paths["kernels.cu"]))
+            pointwise = ctypes.CDLL(str(paths["pointwise.cu"]))
+            vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            fns = SimpleNamespace(
+                pow_fixed=main.curdle_pow_fixed,
+                windowed_combine=main.curdle_windowed_combine,
+                msm_select_reduce=main.curdle_msm_select_reduce,
+                mont_mul=pointwise.curdle_mont_mul,
+                point_add=pointwise.curdle_point_add,
+                point_double=pointwise.curdle_point_double)
+            fns.pow_fixed.argtypes = [
                 vp, vp, i32, ctypes.POINTER(ctypes.c_uint32), i32, vp]
-            lib.curdle_windowed_combine.argtypes = [vp] * 6 + [i32, i32, vp]
-            lib.curdle_msm_select_reduce.argtypes = [vp] * 7 + [i32] * 3 + [vp]
-            for fn in (lib.curdle_pow_fixed, lib.curdle_windowed_combine,
-                       lib.curdle_msm_select_reduce):
+            fns.windowed_combine.argtypes = [vp] * 6 + [i32, i32, vp]
+            fns.msm_select_reduce.argtypes = [vp] * 7 + [i32] * 3 + [vp]
+            fns.mont_mul.argtypes = [vp, vp, vp, i64, i32, i32, vp]
+            fns.point_add.argtypes = [vp] * 9 + [i64, vp]
+            fns.point_double.argtypes = [vp] * 6 + [i64, vp]
+            for fn in vars(fns).values():
                 fn.restype = i32
-            _lib = lib
+            _lib = fns
         return _lib
 
 
@@ -141,10 +181,134 @@ def _check_elems(t: torch.Tensor, ndim: int, name: str) -> None:
                          f"{fp.NWORDS} words, got {tuple(t.shape)}")
 
 
+# -- B1: batched Fp multiply ---------------------------------------------------
+
+mont_mul_plain = fp.mul_plain
+
+
+def mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b / R mod p elementwise over [..., 12] elements. The operands
+    have one shape, or either is a single [12] element that multiplies the
+    whole batch (read in place by the kernel, never materialised)."""
+    for t in (a, b):
+        if t.ndim < 1 or t.shape[-1] != fp.NWORDS:
+            raise ValueError(f"mont_mul: bad element shape {tuple(t.shape)}")
+    if a.shape != b.shape and a.ndim != 1 and b.ndim != 1:
+        raise ValueError(f"mont_mul: shapes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} differ and neither is one element")
+    if _route(a, b) == "cpu":
+        return mont_mul_plain(a, b)
+    shape = a.shape if a.ndim >= b.ndim else b.shape
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    lib = _load()
+    with torch.cuda.device(a.device):
+        rc = lib.mont_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                          out.numel() // fp.NWORDS,
+                          int(a.shape == shape), int(b.shape == shape),
+                          _stream(a.device))
+    _check(rc, "mont_mul")
+    launches["mont_mul"] += 1
+    return out
+
+
+# -- B2, B3: complete point add and double -------------------------------------
+
+def _mul_stacked_plain(avec, bvec):
+    """Independent products as ONE stacked plain field multiply."""
+    return list(fp.mul_plain(torch.stack(avec), torch.stack(bvec)).unbind(0))
+
+
+def point_add_plain(p: curve.PointVec, q: curve.PointVec) -> curve.PointVec:
+    """Complete projective addition (RCB16 algorithm 7, a = 0), two-stage,
+    in plain field ops (shapes broadcast)."""
+    x1, y1, z1 = p
+    x2, y2, z2 = q
+    t0, t1, t2, m4, m5, m6 = _mul_stacked_plain(
+        [x1, y1, z1, fp.add(x1, y1), fp.add(y1, z1), fp.add(x1, z1)],
+        [x2, y2, z2, fp.add(x2, y2), fp.add(y2, z2), fp.add(x2, z2)])
+    t3 = fp.sub(m4, fp.add(t0, t1))
+    t4 = fp.sub(m5, fp.add(t1, t2))
+    y3 = fp.sub(m6, fp.add(t0, t2))
+    t0_3 = fp.add(fp.add(t0, t0), t0)
+    t2b = fp.mul_small_plain(t2, curve.B3)
+    z3 = fp.add(t1, t2b)
+    t1m = fp.sub(t1, t2b)
+    y3b = fp.mul_small_plain(y3, curve.B3)
+    n1, n2, n3, n4, n5, n6 = _mul_stacked_plain(
+        [t4, t3, y3b, t1m, t0_3, z3],
+        [y3b, t1m, t0_3, z3, t3, t4])
+    return curve.PointVec(fp.sub(n2, n1), fp.add(n4, n3), fp.add(n6, n5))
+
+
+def point_double_plain(p: curve.PointVec) -> curve.PointVec:
+    """Complete projective doubling (RCB16 algorithm 9, a = 0), two-stage,
+    in plain field ops."""
+    x, y, z = p
+    t0, t1, t2r, m4 = _mul_stacked_plain([y, y, z, x], [y, z, z, y])
+    t2 = fp.mul_small_plain(t2r, curve.B3)
+    t00 = fp.add(t0, t0)
+    t04 = fp.add(t00, t00)
+    z3s = fp.add(t04, t04)                               # 8*t0
+    y3s = fp.add(t0, t2)
+    t0m = fp.sub(t0, fp.add(fp.add(t2, t2), t2))        # t0 - 3*t2
+    n1, n2, n3, n4 = _mul_stacked_plain([t2, t0m, t1, t0m],
+                                        [z3s, y3s, z3s, m4])
+    return curve.PointVec(fp.add(n4, n4), fp.add(n1, n2), n3)
+
+
+def _check_points(name: str, *points: curve.PointVec) -> None:
+    shape = points[0].x.shape
+    if len(shape) < 1 or shape[-1] != fp.NWORDS:
+        raise ValueError(f"{name}: bad element shape {tuple(shape)}")
+    for pt in points:
+        for t in pt:
+            if t.shape != shape:
+                raise ValueError(f"{name}: coordinate shapes differ: "
+                                 f"{tuple(t.shape)} vs {tuple(shape)}")
+
+
+def _empty_points(like: torch.Tensor) -> curve.PointVec:
+    return curve.PointVec(*(torch.empty_like(like) for _ in range(3)))
+
+
+def point_add(p: curve.PointVec, q: curve.PointVec) -> curve.PointVec:
+    """P + Q pointwise over [..., 12]-coordinate batches of one shape,
+    complete: infinity, P + P and P + (-P) need no special case. p and q
+    may be the same tensors; the result is always fresh tensors."""
+    _check_points("point_add", p, q)
+    if _route(*p, *q) == "cpu":
+        return point_add_plain(p, q)
+    out = _empty_points(p.x)
+    lib = _load()
+    with torch.cuda.device(p.x.device):
+        rc = lib.point_add(*(t.data_ptr() for t in p),
+                           *(t.data_ptr() for t in q),
+                           *(t.data_ptr() for t in out),
+                           p.x.numel() // fp.NWORDS, _stream(p.x.device))
+    _check(rc, "point_add")
+    launches["point_add"] += 1
+    return out
+
+
+def point_double(p: curve.PointVec) -> curve.PointVec:
+    """2 * P pointwise over a [..., 12]-coordinate batch, complete."""
+    _check_points("point_double", p)
+    if _route(*p) == "cpu":
+        return point_double_plain(p)
+    out = _empty_points(p.x)
+    lib = _load()
+    with torch.cuda.device(p.x.device):
+        rc = lib.point_double(*(t.data_ptr() for t in p),
+                              *(t.data_ptr() for t in out),
+                              p.x.numel() // fp.NWORDS, _stream(p.x.device))
+    _check(rc, "point_double")
+    launches["point_double"] += 1
+    return out
+
+
 # -- B7: fixed-exponent ladder ------------------------------------------------
 
-def pow_fixed_plain(x: torch.Tensor, exponent: int) -> torch.Tensor:
-    return fp.pow_fixed(x, exponent)
+pow_fixed_plain = fp.pow_fixed_plain
 
 
 def pow_fixed(x: torch.Tensor, exponent: int) -> torch.Tensor:
@@ -160,7 +324,7 @@ def pow_fixed(x: torch.Tensor, exponent: int) -> torch.Tensor:
         *[(exponent >> (32 * j)) & 0xFFFFFFFF for j in range(fp.NWORDS)])
     lib = _load()
     with torch.cuda.device(x.device):
-        rc = lib.curdle_pow_fixed(
+        rc = lib.pow_fixed(
             x.data_ptr(), out.data_ptr(), x.numel() // fp.NWORDS, words,
             exponent.bit_length(), _stream(x.device))
     _check(rc, "pow_fixed")
@@ -175,8 +339,8 @@ def windowed_combine_plain(sel: curve.PointVec) -> curve.PointVec:
     acc = curve.infinity(sel.x.shape[1:-1], device=sel.x.device)
     for w in range(n_win):
         for _ in range(curve.WINDOW_BITS):
-            acc = curve.double(acc)
-        acc = curve.add(acc, curve.pmap(lambda t, w=w: t[w], sel))
+            acc = point_double_plain(acc)
+        acc = point_add_plain(acc, curve.pmap(lambda t, w=w: t[w], sel))
     return acc
 
 
@@ -194,7 +358,7 @@ def windowed_combine(sel: curve.PointVec) -> curve.PointVec:
                                        device=sel.x.device) for _ in range(3)))
     lib = _load()
     with torch.cuda.device(sel.x.device):
-        rc = lib.curdle_windowed_combine(
+        rc = lib.windowed_combine(
             *(t.data_ptr() for t in sel), *(t.data_ptr() for t in out),
             n_win, rows, _stream(sel.x.device))
     _check(rc, "windowed_combine")
@@ -210,7 +374,8 @@ _REDUCE_CHUNK = 2048        # points per plain tree-level add (bounds temporarie
 def msm_select_reduce_plain(table: curve.PointVec,
                             digits: torch.Tensor) -> curve.PointVec:
     sel = curve.table_select_windows(table, digits)      # [m, W, n2]
-    return curve.reduce_points_axis(sel, chunk=_REDUCE_CHUNK)
+    return curve.reduce_points_axis(sel, chunk=_REDUCE_CHUNK,
+                                    add=point_add_plain)
 
 
 def msm_select_reduce(table: curve.PointVec,
@@ -238,7 +403,7 @@ def msm_select_reduce(table: curve.PointVec,
                            for _ in range(3)))
     lib = _load()
     with torch.cuda.device(digits.device):
-        rc = lib.curdle_msm_select_reduce(
+        rc = lib.msm_select_reduce(
             *(t.data_ptr() for t in table), digits.data_ptr(),
             *(t.data_ptr() for t in out), m, n2, n_win,
             _stream(digits.device))

@@ -6,10 +6,14 @@ import numpy as np
 import pytest
 import torch
 
+from go_curdleproofs_tpu.models import curdleproof as jcurdleproof
+from go_curdleproofs_tpu.ops import compress_dev as jcompress
 from go_curdleproofs_tpu.ops import curve as jcurve
+from go_curdleproofs_tpu.ops import field_backend as jfp
+from go_curdleproofs_tpu.utils import codec as hcodec
 from go_curdleproofs_tpu.utils import field_host as fh
 from go_curdleproofs_tpu_torch import convert
-from go_curdleproofs_tpu_torch.ops import curve
+from go_curdleproofs_tpu_torch.ops import compress_dev, curve
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -121,3 +125,140 @@ def test_convert_takes_over_jax_crs_table():
     dsc = [_scalar(rng) for _ in range(2)]
     assert curve.msm_with_static(sv, sc, dyn, dsc) == fh.g1_add(
         fh.g1_msm(gh, sc), fh.g1_msm(dyn, dsc))
+
+
+# -- the prover's device API ----------------------------------------------------
+
+def test_compress_matches_codec_and_jax():
+    """compress / compress_xy byte-exact with codec.g1_to_bytes and the JAX
+    package's compress_dev, on projective (Z != 1) points, an infinity and
+    both y signs; to_affine_host_xy gives the affine points back."""
+    rng = np.random.default_rng(31)
+    pts = _pts(rng, 7)
+    pts[2] = None
+    pv = curve.from_affine_host(pts, device=CPU)
+    pv = curve.add(pv, pv)                      # Z != 1
+    want_pts = [fh.g1_add(p, p) for p in pts]
+    blobs = bytes(compress_dev.compress(pv).numpy().tobytes())
+    assert [blobs[48 * i:48 * i + 48] for i in range(7)] == \
+        [hcodec.g1_to_bytes(p) for p in want_pts]
+    assert {b[0] & 0xE0 for b in map(hcodec.g1_to_bytes, want_pts)} == \
+        {0x80, 0xA0, 0xC0}
+    rows = compress_dev.compress_xy(pv)
+    assert rows.dtype == torch.uint8 and tuple(rows.shape) == (7, 96)
+    jp = jcurve.from_affine_host(pts)
+    jrows = np.asarray(jcompress.compress_xy(jcurve.add(jp, jp)))
+    assert (rows.numpy() == jrows.astype(np.uint8)).all()
+    assert [compress_dev.decode_xy_host(r) for r in rows.numpy()] == want_pts
+    assert curve.to_affine_host_xy(pv) == want_pts
+
+
+def _msm_jobs(rng, n):
+    a, b, c = ([_scalar(rng) for _ in range(n)] for _ in range(3))
+    b[0] = 0                                            # a zero scalar
+    half = n // 2
+    return [[(0, a, 0)],                                # whole row
+            [(1, b[:half], half)],                      # upper half at offset
+            [(0, a[:half], 0), (1, c, 0)],              # two terms, one owner
+            [(1, [0] * n, 0)],                          # all-zero -> infinity
+            []]                                         # no term -> infinity
+
+
+def test_msm_many_matches_oracle_and_jax():
+    rng = np.random.default_rng(32)
+    n = 8
+    vecs = [_pts(rng, n), _pts(rng, n)]
+    vecs[0][3] = None                                   # an infinity base
+    jobs = _msm_jobs(rng, n)
+    sv = curve.StackedVec.from_affine(vecs, device=CPU)
+    assert (sv.k, sv.width, sv.n_valid) == (2, 8, 8)
+    got = sv.msm_many(jobs)
+    want = []
+    for terms in jobs:
+        acc = None
+        for (row, sc, off) in terms:
+            acc = fh.g1_add(acc, fh.g1_msm(
+                [p for p in vecs[row][off:off + len(sc)]],
+                [s if p else 0 for p, s in
+                 zip(vecs[row][off:off + len(sc)], sc)]))
+        want.append(acc)
+    assert got == want
+    assert got[3] is None and got[4] is None
+    assert got == jcurve.StackedVec.from_affine(vecs).msm_many(jobs[:4]) \
+        + [None]
+    with pytest.raises(ValueError):
+        sv.msm_many([[(0, [1] * 5, 6)]])                # runs past the row
+
+
+def test_folded_bases_folds_and_diags_match_oracle_and_jax():
+    """Two recorded folds and a diagonal rescale stay scalar-side: the MSMs
+    equal those over the honestly folded, rescaled bases."""
+    rng = np.random.default_rng(33)
+    n = 8
+    g = _pts(rng, n)
+    diag = [_scalar(rng) for _ in range(n)]
+    g1, g2 = _scalar(rng), _scalar(rng)
+    g1b, g2b = _scalar(rng), _scalar(rng)
+
+    def fold(vec, gamma):
+        h = len(vec) // 2
+        return [fh.g1_add(vec[i], fh.g1_mul(vec[i + h], gamma))
+                for i in range(h)]
+
+    row0 = fold(fold(g, g1), g2)
+    row1 = fold(fold([fh.g1_mul(p, d) for p, d in zip(g, diag)], g1b), g2b)
+    sc = [_scalar(rng), _scalar(rng)]
+    jobs = [[(0, sc, 0)], [(1, sc, 0)], [(0, sc[:1], 1), (1, sc[1:], 0)]]
+    want = [fh.g1_msm(row0, sc), fh.g1_msm(row1, sc),
+            fh.g1_add(fh.g1_mul(row0[1], sc[0]), fh.g1_mul(row1[0], sc[1]))]
+
+    sv = curve.StackedVec.from_affine([g], device=CPU, pad_to=n)
+    fb = curve.FoldedBases(sv, rows=[0, 0], diags={1: diag})
+    assert (fb.k, fb.n_valid) == (2, 8)
+    fb = fb.fold([g1, g1b]).fold([g2, g2b])
+    assert fb.n_valid == 2
+    assert fb.msm_many(jobs) == want
+    jfb = jcurve.FoldedBases(jcurve.StackedVec.from_affine([g], pad_to=n),
+                             rows=[0, 0], diags={1: diag})
+    assert jfb.fold([g1, g1b]).fold([g2, g2b]).msm_many(jobs) == want
+    # one gamma for every row
+    fb1 = curve.FoldedBases.from_affine([g], device=CPU).fold(g1)
+    assert fb1.msm_many([[(0, sc + sc, 0)]]) == [fh.g1_msm(fold(g, g1),
+                                                           sc + sc)]
+
+
+def test_msm_batch_matches_oracle_and_jax():
+    rng = np.random.default_rng(34)
+    jobs = [(_pts(rng, 3), [_scalar(rng) for _ in range(3)]),
+            (_pts(rng, 5), [_scalar(rng) for _ in range(5)]),
+            ([None, fh.G1_GEN], [7, 0])]
+    got = curve.msm_batch(jobs, device=CPU)
+    assert got == [fh.g1_msm(*jobs[0]), fh.g1_msm(*jobs[1]), None]
+    assert got == jcurve.msm_batch(jobs)
+    assert curve.msm_batch([], device=CPU) == []
+    with pytest.raises(ValueError):
+        curve.msm_batch([(jobs[0][0], [1])], device=CPU)
+
+
+def test_convert_carries_pointvec_and_crs_both_ways():
+    """A JAX PointVec crosses by canonical coordinates (its to_ints) and
+    comes back the same; a CRS crosses as affine ints."""
+    rng = np.random.default_rng(35)
+    pts = _pts(rng, 6)
+    pts[1] = None
+    jp = jcurve.add(jcurve.from_affine_host(pts), jcurve.from_affine_host(pts))
+    planes = [np.array(jfp.to_ints(c), dtype=object) for c in jp]
+    pv = convert.pointvec_from_ints(*planes, (2, 3), device=CPU)
+    assert tuple(pv.x.shape) == (2, 3, 12)
+    assert curve.to_affine_host(pv) == jcurve.to_affine_host(jp)
+    back = convert.pointvec_to_ints(pv)
+    assert all(b.shape == (2, 3) and b.reshape(-1).tolist() == p.tolist()
+               for b, p in zip(back, planes))
+
+    gs, hs = _pts(rng, 4), _pts(rng, 4)
+    h, gt, gu = _pts(rng, 3)
+    crs = convert.crs_from_affine(gs, hs, h, gt, gu, gs[0], None)
+    assert (crs.gs, crs.hs, crs.h, crs.gt, crs.gu, crs.gsum, crs.hsum) == \
+        (gs, hs, h, gt, gu, gs[0], None)
+    jcrs = jcurdleproof.CRS(**convert.crs_to_affine(crs))
+    assert convert.crs_from_affine(**vars(jcrs)) == crs

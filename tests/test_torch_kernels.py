@@ -1,4 +1,4 @@
-"""The port's three kernels (go_curdleproofs_tpu_torch/ops/kernels.py).
+"""The port's six kernels (go_curdleproofs_tpu_torch/ops/kernels.py).
 
 On the CPU each wrapper runs its plain version; here those are held against
 the JAX package's Pallas kernels in interpret mode (as tests/
@@ -114,6 +114,93 @@ def test_msm_select_reduce_plain_matches_pallas_kernel():
                         for i, r in enumerate(rows)]
 
 
+def test_mont_mul_plain_matches_pallas_kernel():
+    """B1 on the field's edge values and a batch that is no block multiple;
+    a single-element operand multiplies the whole batch."""
+    rng = np.random.default_rng(41)
+    n = 70
+    xs = [int.from_bytes(rng.bytes(48), "little") % P for _ in range(n)]
+    ys = [int.from_bytes(rng.bytes(48), "little") % P for _ in range(n)]
+    xs[:6] = [0, 1, P - 1, P - 2, 2, (P + 1) // 2]
+    ys[:6] = [0, P - 1, P - 1, 1, (P - 1) // 2, 2]
+    want = rns.to_ints(rns_kernels.mont_mul(rns.from_ints(xs),
+                                            rns.from_ints(ys),
+                                            interpret=True))
+    a, b = fp.from_ints(xs, CPU), fp.from_ints(ys, CPU)
+    got = fp.to_ints(kernels.mont_mul(a, b))
+    assert got == want == [x * y % P for x, y in zip(xs, ys)]
+    assert torch.equal(kernels.mont_mul(a, b), kernels.mont_mul_plain(a, b))
+    assert torch.equal(fp.mul(a, b), kernels.mont_mul_plain(a, b))
+    one = fp.from_ints([ys[7]], CPU)[0]                     # [12]
+    assert fp.to_ints(kernels.mont_mul(a, one)) == \
+        fp.to_ints(kernels.mont_mul(one, a)) == [x * ys[7] % P for x in xs]
+    plane = a.reshape(7, 10, fp.NWORDS)
+    assert fp.to_ints(kernels.mont_mul(plane, one)) == \
+        [x * ys[7] % P for x in xs]
+
+
+def test_point_add_double_plain_match_pallas_kernels():
+    """B2 and B3 against the fused Pallas kernels (interpret) and the
+    oracle: infinity operands, P + P, P + (-P), and chained results."""
+    rng = np.random.default_rng(42)
+    m = 12
+    pts, qts = _rand_points(rng, m), _rand_points(rng, m)
+    pts[0] = None
+    qts[1] = None
+    pts[2] = qts[2] = None
+    qts[3] = pts[3]
+    qts[4] = (pts[4][0], (P - pts[4][1]) % P)
+    jp, jq = jcurve.from_affine_host(pts), jcurve.from_affine_host(qts)
+    pv = curve.from_affine_host(pts, device=CPU)
+    qv = curve.from_affine_host(qts, device=CPU)
+
+    got = curve.to_affine_host(kernels.point_add(pv, qv))
+    assert got == jcurve.to_affine_host(
+        rns_kernels.point_add(jp, jq, interpret=True))
+    assert got == [fh.g1_add(p, q) for p, q in zip(pts, qts)]
+    got = curve.to_affine_host(kernels.point_double(pv))
+    assert got == jcurve.to_affine_host(
+        rns_kernels.point_double(jp, interpret=True))
+    assert got == [fh.g1_add(p, p) for p in pts]
+
+    # the same tensors as both operands, and results fed back in
+    assert curve.to_affine_host(kernels.point_add(pv, pv)) == got
+    r2 = kernels.point_add(kernels.point_add(pv, qv),
+                           kernels.point_double(qv))
+    assert curve.to_affine_host(r2) == [
+        fh.g1_add(fh.g1_add(p, q), fh.g1_add(q, q))
+        for p, q in zip(pts, qts)]
+    # curve.add / curve.double are these wrappers
+    assert all(torch.equal(u, v) for u, v in
+               zip(curve.add(pv, qv), kernels.point_add_plain(pv, qv)))
+    assert all(torch.equal(u, v) for u, v in
+               zip(curve.double(pv), kernels.point_double_plain(pv)))
+
+
+def test_plain_versions_call_no_wrapper(monkeypatch):
+    """On the card the kernels are held against their plain versions, so a
+    plain version must never reach a wrapper (it would be a kernel held
+    against kernels)."""
+    def boom(*a, **k):
+        raise AssertionError("a plain version called a kernel wrapper")
+
+    rng = np.random.default_rng(47)
+    pv = curve.from_affine_host(_rand_points(rng, 4), device=CPU)
+    x = fp.from_ints([3, 5, 7, 11], CPU)
+    table = curve.build_table(curve.pmap(lambda t: t[None], pv))   # [9,1,4]
+    dig = torch.from_numpy(rng.integers(-8, 9, (1, 4, 3), dtype=np.int32))
+    sel = curve.pmap(lambda t: t.reshape(2, 2, fp.NWORDS), pv)
+    for name in ("mont_mul", "point_add", "point_double", "pow_fixed",
+                 "windowed_combine", "msm_select_reduce"):
+        monkeypatch.setattr(kernels, name, boom)
+    kernels.mont_mul_plain(x, x)
+    kernels.point_add_plain(pv, pv)
+    kernels.point_double_plain(pv)
+    kernels.pow_fixed_plain(x, 0b1011)
+    kernels.windowed_combine_plain(sel)
+    kernels.msm_select_reduce_plain(table, dig)
+
+
 def test_wrappers_check_inputs_and_never_fall_back():
     x = fp.from_ints([1, 2, 3], CPU)
     with pytest.raises(TypeError):
@@ -126,6 +213,19 @@ def test_wrappers_check_inputs_and_never_fall_back():
                            for _ in range(3)))
     with pytest.raises(ValueError):                            # 8 entries
         kernels.msm_select_reduce(bad, torch.zeros(1, 4, W, dtype=torch.int32))
+    # B1-B3: a view is refused, not silently copied; shapes must agree
+    pv = curve.PointVec(x, x, x)
+    with pytest.raises(ValueError):
+        kernels.mont_mul(torch.cat([x, x])[0::2], x)
+    with pytest.raises(ValueError):
+        kernels.mont_mul(x, x[:2])
+    with pytest.raises(ValueError):
+        kernels.point_add(pv, curve.pmap(lambda t: t[:2], pv))
+    with pytest.raises(ValueError):
+        kernels.point_double(curve.pmap(lambda t: torch.cat([t, t])[0::2],
+                                        pv))
+    with pytest.raises(TypeError):
+        kernels.point_double(curve.pmap(lambda t: t.to(torch.int64), pv))
     # a device that is neither the CPU nor CUDA has no route, plain or not
     meta = torch.empty((4, fp.NWORDS), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
@@ -182,3 +282,40 @@ def test_cuda_kernels_match_plain(cuda_device):
     out = kernels.windowed_combine(sel)
     assert all(torch.equal(a, b) for a, b in
                zip(out, kernels.windowed_combine_plain(sel)))
+
+
+@pytest.mark.cuda
+def test_cuda_pointwise_kernels_match_plain(cuda_device):
+    """B1-B3 on the card against their plain versions, exact, with the
+    edge cases, a broadcast operand and aliased operands; the inverse
+    ladder (B7 with exponent p - 2) with a zero."""
+    rng = np.random.default_rng(48)
+    xs = [0, 1, P - 1] + [int.from_bytes(rng.bytes(48), "little") % P
+                          for _ in range(97)]
+    a = fp.from_ints(xs, cuda_device)
+    b = fp.from_ints(xs[::-1], cuda_device)
+    kernels.reset_launches()
+    assert torch.equal(kernels.mont_mul(a, b), kernels.mont_mul_plain(a, b))
+    assert torch.equal(kernels.mont_mul(a, a), kernels.mont_mul_plain(a, a))
+    assert torch.equal(kernels.mont_mul(a, b[5]),
+                       kernels.mont_mul_plain(a, b[5]))
+    assert kernels.launches["mont_mul"] == 3
+    assert torch.equal(kernels.pow_fixed(a, P - 2),
+                       kernels.pow_fixed_plain(a, P - 2))
+
+    pts, qts = _rand_points(rng, 40, n_inf=2), _rand_points(rng, 40, n_inf=2)
+    qts[3] = pts[3]
+    qts[4] = fh.g1_neg(pts[4])
+    pv = curve.from_affine_host(pts, device=cuda_device)
+    qv = curve.from_affine_host(qts, device=cuda_device)
+    for got, want in ((kernels.point_add(pv, qv),
+                       kernels.point_add_plain(pv, qv)),
+                      (kernels.point_add(pv, pv),
+                       kernels.point_add_plain(pv, pv)),
+                      (kernels.point_double(pv),
+                       kernels.point_double_plain(pv))):
+        assert all(torch.equal(u, v) for u, v in zip(got, want))
+    assert kernels.launches["point_add"] == 2
+    assert kernels.launches["point_double"] == 1
+    with pytest.raises(ValueError):
+        kernels.mont_mul(torch.cat([a, a])[0::2], a)
