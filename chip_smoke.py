@@ -9,9 +9,11 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
      library or the Python path serves the transcript;
   2. build: compiles the CUDA kernels from ops/csrc/ with nvcc (one process
      per source, started together) and the host C library with cc;
-  3. each of the six kernels against its plain torch version on the card, at
-     the shapes the verifier and the prover give it, compared exactly by
-     value (integers, tolerance 0), with timings and roofline bounds;
+  3. each of the eleven kernels against its plain torch version on the card,
+     at the shapes the verifier and the provers give it, compared exactly by
+     value (integers, tolerance 0), with timings and roofline bounds; the
+     two forms of a per-point scalar multiplication (the window loop on
+     point_x16_add, the one-launch windowed_combine) side by side;
   4. verifier path: ELL=124 CRS, both proofs of
      tests/fixture_whisk_ell124.json verified with launch counts, tampered
      proofs rejected, the golden ell=12 Whisk proof and tracker proof
@@ -21,7 +23,15 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
      their seeds and compared byte for byte with tests/golden_vectors.json;
      then a proof at ELL=124 from the fixture's trackers, verified by the
      port's verifier, a flipped byte rejected, cold/warm prove times and
-     launch counts per prove and per verify.
+     launch counts per prove and per verify;
+  6. device prover path: the golden ell=12 and ell=60 shuffle proofs and
+     the golden ell=12 Whisk proof reproduced byte for byte with
+     prover="device"; an ELL=124 prove with prover="device" byte-identical
+     to the prover="host" proof from the same seeds, verified, a flipped
+     byte rejected; the chain between upload and the one fetch run under
+     torch.cuda.set_sync_debug_mode("error"), so any synchronising call in
+     it fails the run; launch counts of every kernel over that prove;
+     cold/warm times of both provers side by side.
 
 Prints the kernel summary as one JSON line, then as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
@@ -53,7 +63,18 @@ REPLACES = {
     "pow_fixed": "go_curdleproofs_tpu/ops/rns_kernels.py:664",
     "windowed_combine": "go_curdleproofs_tpu/ops/rns_kernels.py:421",
     "msm_select_reduce": "go_curdleproofs_tpu/ops/rns_kernels.py:500",
+    "point_x16_add": "go_curdleproofs_tpu/ops/rns_kernels.py:397",
+    "fr_pow_fixed": "go_curdleproofs_tpu/ops/limb_kernels.py:65",
+    # the port's own kernels: no TPU kernel stands behind them, these are
+    # the array-op functions of the JAX package whose work they do
+    "fr_mont_mul": "go_curdleproofs_tpu/ops/limb_field.py:234",
+    "strobe_absorb_stream": "go_curdleproofs_tpu/ops/strobe_dev.py:314",
+    "strobe_challenge32": "go_curdleproofs_tpu/ops/strobe_dev.py:361",
 }
+# the kernels that the verifier and the host-orchestrated prover run; the
+# device-resident prover runs all of REPLACES
+EARLIER_KERNELS = ("mont_mul", "point_add", "point_double", "pow_fixed",
+                   "windowed_combine", "msm_select_reduce")
 FIXTURE = os.path.join(ROOT, "tests", "fixture_whisk_ell124.json")
 GOLDEN = os.path.join(ROOT, "tests", "golden_vectors.json")
 SMS_FLIP_BYTE = 4520      # inside the same-multiscalar scalar x (4504-4535)
@@ -68,6 +89,11 @@ INT32_MADS_PER_S = 16.75e12
 ELEM_BYTES = 48
 MADS_PER_PRODUCT = 2 * 12 * 12        # product and Montgomery reduction
 PRODUCTS_ADD, PRODUCTS_DOUBLE = 12, 8
+FR_BYTES = 32
+FR_MADS_PER_PRODUCT = 2 * 8 * 8       # 8-word product and reduction
+# Keccak-f[1600]: 24 rounds of ~150 64-bit xor/and/not/rotate operations,
+# two 32-bit integer operations each
+KECCAK_INT32_OPS = 24 * 150 * 2
 
 
 def check(cond: bool, what: str) -> None:
@@ -102,11 +128,13 @@ def kernel_ms(fn, launches: int = 20) -> float:
     return start.elapsed_time(end) / launches
 
 
-def bound(n_bytes: float, products: float) -> dict:
+def bound(n_bytes: float, products: float,
+          ops_per_product: int = MADS_PER_PRODUCT) -> dict:
     """The least time the card could take: bytes over the memory rate
-    against multiply-adds over the int32 rate."""
+    against 32-bit integer operations (multiply-adds of `products` field
+    products, or plain integer operations) over the int32 rate."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = products * MADS_PER_PRODUCT / INT32_MADS_PER_S * 1e3
+    by_ops = products * ops_per_product / INT32_MADS_PER_S * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
 
@@ -360,6 +388,175 @@ def phase_kernels(dev: torch.device) -> dict:
     return res
 
 
+def _first_attempt_rejected(label: bytes):
+    """A host transcript whose next challenge under `label` is rejected at
+    least once: (state bytes, pos, pos_begin, attempts)."""
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
+    from go_curdleproofs_tpu_torch.utils.transcript import Transcript
+
+    for pre in range(64):
+        def fresh():
+            t = Transcript(b"chip_smoke")
+            t.append_message(b"prefix", bytes(pre))
+            return t
+        probe, attempts = fresh(), 1
+        while int.from_bytes(probe.inner.challenge_bytes(label, 32),
+                             "big") >= fh.R:
+            attempts += 1
+        if attempts > 1:
+            s = fresh().inner.strobe
+            return bytes(s.state), s.pos, s.pos_begin, attempts
+    raise RuntimeError("no rejected first attempt in 64 prefixes")
+
+
+def phase_kernels_device_prover(dev: torch.device) -> dict:
+    """The device prover's kernels vs their plain versions on the card, at
+    that path's shapes, and the two forms of a per-point scalar
+    multiplication side by side."""
+    from go_curdleproofs_tpu_torch.models import device_common
+    from go_curdleproofs_tpu_torch.ops import curve, fr, kernels, strobe_dev
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
+    from go_curdleproofs_tpu_torch.utils.transcript import Transcript
+
+    rng = random.Random(2025)
+    res = {}
+
+    def report(name, shape, ms, plain_ms, bnd, keep):
+        print(f"{name} {shape}: exact; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms, bound {bnd['bound_ms']:.6f} ms by "
+              f"{bnd['bound_by']}")
+        if keep:
+            res[name] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, **bnd)
+
+    # B8: gamma^-1 = gamma^(r-2) over 1 and 8 elements (with 0, 1, r-1)
+    e = fh.R - 2
+    ladder = e.bit_length() - 1 + bin(e).count("1") - 1
+    for n in (8, 1):
+        vals = ([0, 1, fh.R - 1] + [rng.randrange(fh.R)
+                                    for _ in range(5)])[-n:]
+        x = fr.from_ints(vals, dev)
+        got, want = kernels.fr_pow_fixed(x, e), kernels.fr_pow_fixed_plain(x,
+                                                                           e)
+        check(torch.equal(got, want) and fr.to_ints(got)
+              == [pow(v, e, fh.R) for v in vals], f"fr_pow_fixed [{n}]")
+        report("fr_pow_fixed", f"[{n}] exponent r-2",
+               kernel_ms(lambda: kernels.fr_pow_fixed(x, e)),
+               cuda_ms(lambda: kernels.fr_pow_fixed_plain(x, e), 1),
+               bound(2 * n * FR_BYTES, n * ladder, FR_MADS_PER_PRODUCT),
+               keep=n == 1)
+
+    # the Fr multiply: [128] lanes, and [128] lanes by one element
+    vals = [0, 1, fh.R - 1] + [rng.randrange(fh.R) for _ in range(125)]
+    a, b = fr.from_ints(vals, dev), fr.from_ints(vals[::-1], dev)
+    got = kernels.fr_mont_mul(a, b)
+    check(torch.equal(got, kernels.fr_mont_mul_plain(a, b))
+          and fr.to_ints(got) == [x * y % fh.R for x, y in
+                                  zip(vals, vals[::-1])], "fr_mont_mul [128]")
+    report("fr_mont_mul", [128],
+           kernel_ms(lambda: kernels.fr_mont_mul(a, b)),
+           cuda_ms(lambda: kernels.fr_mont_mul_plain(a, b)),
+           bound(3 * 128 * FR_BYTES, 128, FR_MADS_PER_PRODUCT), keep=True)
+    one = b[7].contiguous()
+    check(torch.equal(kernels.fr_mont_mul(a, one),
+                      kernels.fr_mont_mul_plain(a, one)),
+          "fr_mont_mul [128] x one element")
+    report("fr_mont_mul", "[128] x one element",
+           kernel_ms(lambda: kernels.fr_mont_mul(a, one)),
+           cuda_ms(lambda: kernels.fr_mont_mul_plain(a, one)),
+           bound((2 * 128 + 1) * FR_BYTES, 128, FR_MADS_PER_PRODUCT),
+           keep=False)
+
+    # B4 at the window loop's batches: 2n lanes of 1, 2 and 12 points
+    pts, qts = _curve_points(24, rng), _curve_points(24, rng)
+    pts[0] = None                               # 16 * infinity + Q
+    qts[1] = None                               # 16 * P + infinity
+    pts[2] = qts[2] = None
+    qts[3] = fh.g1_mul(pts[3], 16)              # the add is a doubling
+    qts[4] = fh.g1_neg(fh.g1_mul(pts[4], 16))   # the add cancels
+    for n in (2, 4, 24):
+        pv = curve.from_affine_host(pts[-n:] if n < 24 else pts, device=dev)
+        qv = curve.from_affine_host(qts[-n:] if n < 24 else qts, device=dev)
+        got = kernels.point_x16_add(pv, qv)
+        want = kernels.point_x16_add_plain(pv, qv)
+        check(_point_err(got, want) == 0, f"point_x16_add [{n}]")
+        if n == 24:
+            check(curve.to_affine_host(got)
+                  == [fh.g1_add(fh.g1_mul(p, 16) if p else None, q)
+                      for p, q in zip(pts, qts)], "point_x16_add edge cases")
+        report("point_x16_add", [n],
+               kernel_ms(lambda: kernels.point_x16_add(pv, qv)),
+               cuda_ms(lambda: kernels.point_x16_add_plain(pv, qv)),
+               bound(9 * n * ELEM_BYTES,
+                     n * (4 * PRODUCTS_DOUBLE + PRODUCTS_ADD)), keep=n == 24)
+
+    # the per-point scalar multiplication, both forms, at 1, 2 and 12 points
+    for n in (1, 2, 12):
+        sc = [rng.randrange(fh.R) for _ in range(n)]
+        pv = curve.from_affine_host(pts[5:5 + n], device=dev)
+        dig = curve._digits(curve.scalars_to_digits(sc), dev)
+        steps = curve.scalar_mul_steps(pv, dig)
+        combine = curve.scalar_mul_device(pv, dig)
+        check(curve.to_affine_host(steps) == curve.to_affine_host(combine)
+              == [fh.g1_mul(p, s) for p, s in zip(pts[5:5 + n], sc)],
+              f"scalar_mul_steps == scalar_mul_device [{n}]")
+        print(f"scalar multiplication of {n} point(s): window loop on "
+              f"point_x16_add "
+              f"{cuda_ms(lambda: curve.scalar_mul_steps(pv, dig)):.3f} ms, "
+              f"one windowed_combine launch "
+              f"{cuda_ms(lambda: curve.scalar_mul_device(pv, dig)):.3f} ms")
+
+    # the transcript: the same-multiscalar step's 256 tracker-point rows
+    # under one label from a mid-rate position
+    host = Transcript(b"chip_smoke")
+    host.append_message(b"prefix", bytes(range(41)))
+    rows = bytes(rng.randrange(256) for _ in range(256 * 48))
+    ts = device_common.transcript_to_device(host, dev)
+    pos, pb = ts.pos, ts.pos_begin
+    template, tr_pos, pbs, pos1, pb1 = strobe_dev._rows_layout(
+        pos, pb, b"same_msm_step1", 256, 48, dev)
+    stream = template.index_copy(
+        0, tr_pos, strobe_dev.bytes_tensor(rows, dev))
+    got = kernels.strobe_absorb_stream(ts.st, stream, pos, pbs)
+    want = kernels.strobe_absorb_stream_plain(ts.st, stream, pos, pbs)
+    for i in range(256):
+        host.append_message(b"same_msm_step1", rows[48 * i:48 * i + 48])
+    hs = host.inner.strobe
+    check(torch.equal(got, want) and bytes(got.tolist()) == bytes(hs.state)
+          and (pos1, pb1) == (hs.pos, hs.pos_begin),
+          "strobe_absorb_stream [256 x 48]")
+    n_stream = stream.numel()
+    report("strobe_absorb_stream", f"[256 x 48] = {n_stream} bytes, "
+           f"{pbs.numel()} permutations",
+           kernel_ms(lambda: kernels.strobe_absorb_stream(ts.st, stream, pos,
+                                                          pbs)),
+           cuda_ms(lambda: kernels.strobe_absorb_stream_plain(
+               ts.st, stream, pos, pbs), 1),
+           bound(400 + n_stream + pbs.numel(), pbs.numel(),
+                 KECCAK_INT32_OPS), keep=True)
+
+    # a challenge whose first attempt is rejected; every attempt runs one
+    # permutation, the final re-absorb stays inside the rate
+    label = b"same_msm_gamma"
+    state, pos, pb, attempts = _first_attempt_rejected(label)
+    st = strobe_dev.bytes_tensor(state, dev)
+    g_st, g_ch = kernels.strobe_challenge32(st, label, pos, pb)
+    w_st, w_ch = kernels.strobe_challenge32_plain(st, label, pos, pb)
+    host = Transcript(b"chip_smoke")
+    host.inner.strobe.state[:] = state
+    host.inner.strobe.pos, host.inner.strobe.pos_begin = pos, pb
+    c = host.get_and_append_challenge(label)
+    check(torch.equal(g_st, w_st) and torch.equal(g_ch, w_ch)
+          and int.from_bytes(bytes(g_ch.tolist()), "big") == c
+          and bytes(g_st.tolist()) == bytes(host.inner.strobe.state),
+          "strobe_challenge32 with a rejected attempt")
+    report("strobe_challenge32", f"{attempts} attempts",
+           kernel_ms(lambda: kernels.strobe_challenge32(st, label, pos, pb)),
+           cuda_ms(lambda: kernels.strobe_challenge32_plain(st, label, pos,
+                                                            pb), 1),
+           bound(400 + 32, attempts, KECCAK_INT32_OPS), keep=True)
+    return res
+
+
 def _trackers(pairs):
     from go_curdleproofs_tpu_torch.models import whisk
 
@@ -415,8 +612,8 @@ def phase_verifier(dev: torch.device, card: str):
     counts = dict(kernels.launches)
     print(f"fixture verify: {ok0}, {ok1}; launches over both {counts}")
     check(ok0 and ok1, "ELL=124 fixture proofs accepted")
-    for name, n in counts.items():
-        check(n > 0, f"{name} launched on the verifier path")
+    for name in EARLIER_KERNELS:
+        check(counts[name] > 0, f"{name} launched on the verifier path")
 
     pre, post, proof = insts[0]
     bad = bytearray(proof)
@@ -467,7 +664,6 @@ def phase_prover(dev: torch.device, card: str, crs, insts, gv) -> dict:
     at ELL=124. Returns the launch counts of one ELL=124 prove."""
     from go_curdleproofs_tpu_torch.models import curdleproof, whisk
     from go_curdleproofs_tpu_torch.ops import kernels
-    from go_curdleproofs_tpu_torch.utils import codec
     from go_curdleproofs_tpu_torch.utils import field_host as fh
     from go_curdleproofs_tpu_torch.utils.rand import Rand
 
@@ -480,24 +676,9 @@ def phase_prover(dev: torch.device, card: str, crs, insts, gv) -> dict:
           == w["post_trackers_hex"], "golden ell=12 post-trackers")
 
     for vec in gv["shuffle"]:
-        ell = vec["ell"]
-        scrs = curdleproof.generate_crs(ell, Rand(vec["crs_seed"]),
-                                        device=dev)
-        r = Rand(vec["inst_seed"])
-        Rs, Ss = r.get_g1s(ell), r.get_g1s(ell)
-        rp = Rand(vec["prove_seed"])
-        perm = rp.generate_permutation(ell)
-        k = rp.get_fr()
-        Ts, Us, M, rs_m = curdleproof.shuffle_permute_commit(
-            scrs.gs, scrs.hs, Rs, Ss, perm, k, rp, device=dev)
-        check(codec.g1_to_bytes(M).hex() == vec["m_hex"],
-              f"golden ell={ell} commitment M")
-        sp = curdleproof.prove(scrs, Rs, Ss, Ts, Us, M, perm, k, rs_m, rp,
-                               device=dev)
-        buf = io.BytesIO()
-        sp.serialize(buf)
-        check(buf.getvalue().hex() == vec["proof_hex"],
-              f"golden ell={ell} shuffle proof bytes")
+        check(_golden_shuffle_proof(vec, "host", dev)
+              == (vec["m_hex"], vec["proof_hex"]),
+              f"golden ell={vec['ell']} commitment M and shuffle proof bytes")
 
     t = gv["tracker"]
     k = int(t["k"], 16)
@@ -522,8 +703,8 @@ def phase_prover(dev: torch.device, card: str, crs, insts, gv) -> dict:
     cold_ms = (time.perf_counter() - t0) * 1e3
     counts = dict(kernels.launches)
     check(len(proof) == whisk.WHISK_SHUFFLE_PROOF_SIZE, "proof size 4576")
-    for name, n in counts.items():
-        check(n > 0, f"{name} launched on the prover path")
+    for name in EARLIER_KERNELS:
+        check(counts[name] > 0, f"{name} launched on the prover path")
 
     def verify(proof_bytes):
         return whisk.is_valid_whisk_shuffle_proof(
@@ -537,6 +718,125 @@ def phase_prover(dev: torch.device, card: str, crs, insts, gv) -> dict:
     print(f"prove ELL=124: cold {cold_ms:.1f} ms, warm {warm_ms:.1f} ms "
           f"(median of 3) on {card}; proof verified, flipped byte rejected; "
           f"launches per prove {counts}")
+    return counts, post, proof, (cold_ms, warm_ms)
+
+
+def _golden_shuffle_proof(vec, prover: str, dev: torch.device):
+    """A golden shuffle vector's commitment M and proof regenerated from its
+    seeds (hex, hex)."""
+    from go_curdleproofs_tpu_torch.models import curdleproof
+    from go_curdleproofs_tpu_torch.utils import codec
+    from go_curdleproofs_tpu_torch.utils.rand import Rand
+
+    ell = vec["ell"]
+    scrs = curdleproof.generate_crs(ell, Rand(vec["crs_seed"]), device=dev)
+    r = Rand(vec["inst_seed"])
+    Rs, Ss = r.get_g1s(ell), r.get_g1s(ell)
+    rp = Rand(vec["prove_seed"])
+    perm = rp.generate_permutation(ell)
+    k = rp.get_fr()
+    Ts, Us, M, rs_m = curdleproof.shuffle_permute_commit(
+        scrs.gs, scrs.hs, Rs, Ss, perm, k, rp, device=dev)
+    sp = curdleproof.prove(scrs, Rs, Ss, Ts, Us, M, perm, k, rs_m, rp,
+                           device=dev, prover=prover)
+    buf = io.BytesIO()
+    sp.serialize(buf)
+    return codec.g1_to_bytes(M).hex(), buf.getvalue().hex()
+
+
+def phase_device_prover(dev: torch.device, card: str, crs, insts, gv,
+                        host_post, host_proof: bytes, host_ms) -> dict:
+    """The device-resident one-fetch prover on the card. Returns the
+    launch counts of one ELL=124 device prove."""
+    from go_curdleproofs_tpu_torch.models import (curdleproof,
+                                                  device_common,
+                                                  device_prover_full, whisk)
+    from go_curdleproofs_tpu_torch.ops import kernels
+    from go_curdleproofs_tpu_torch.utils.rand import Rand
+
+    # From here on the chain between the upload and the one fetch runs
+    # with synchronising calls turned into errors, and every fetch counts.
+    chain, fetch = device_prover_full._chain, device_common.fetch
+    seen = dict(chains=0, fetches=0)
+
+    def guarded_chain(inp):
+        seen["chains"] += 1
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return chain(inp)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def counted_fetch(tensors):
+        seen["fetches"] += 1
+        return fetch(tensors)
+
+    device_prover_full._chain = guarded_chain
+    device_prover_full.fetch = counted_fetch
+    try:
+        for vec in gv["shuffle"]:
+            check(_golden_shuffle_proof(vec, "device", dev)
+                  == (vec["m_hex"], vec["proof_hex"]),
+                  f"golden ell={vec['ell']} shuffle proof bytes, "
+                  f"prover=device")
+        w = gv["whisk"]
+        gcrs = curdleproof.generate_crs(w["ell"], Rand(w["crs_seed"]),
+                                        device=dev)
+        _, gproof = whisk.generate_whisk_shuffle_proof(
+            gcrs, _golden_whisk_pre(w), Rand(w["prove_seed"]), device=dev,
+            prover="device")
+        check(gproof.hex() == w["proof_hex"],
+              "golden ell=12 Whisk proof bytes, prover=device")
+        print("golden ell=12 and ell=60 shuffle proofs and ell=12 Whisk "
+              "proof reproduced byte for byte with prover=device")
+
+        pre = insts[0][0]
+
+        def prove(prover="device"):
+            return whisk.generate_whisk_shuffle_proof(
+                crs, pre, Rand(PROVE_SEED), device=dev, prover=prover)
+
+        seen.update(chains=0, fetches=0)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        post, proof = prove()
+        torch.cuda.synchronize()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(kernels.launches)
+        check(seen == dict(chains=1, fetches=1),
+              f"one chain and one fetch per device prove, saw {seen}")
+        check(proof == host_proof and
+              [(t.r_g, t.k_r_g) for t in post]
+              == [(t.r_g, t.k_r_g) for t in host_post],
+              "ELL=124 prover=device proof byte-identical to prover=host")
+        for name, n in counts.items():
+            check(n > 0, f"{name} launched by the device prove")
+        check(counts["fr_pow_fixed"] == 17,
+              f"17 Fr inversions at N=128, saw {counts['fr_pow_fixed']}")
+        check(whisk.is_valid_whisk_shuffle_proof(
+            crs, pre, post, proof, Rand(11), device=dev),
+            "ELL=124 device proof accepted by the verifier")
+        bad = bytearray(proof)
+        bad[SMS_FLIP_BYTE] ^= 0x01
+        check(not whisk.is_valid_whisk_shuffle_proof(
+            crs, pre, post, bytes(bad), Rand(11), device=dev),
+            "flipped byte of the device proof rejected")
+        # parent, change, change, parent
+        host_warm = [cuda_ms(lambda: prove("host"), 2)]
+        dev_warm = cuda_ms(lambda: check(prove()[1] == proof,
+                                         "device prove repeats"), 5)
+        host_warm.append(cuda_ms(lambda: prove("host"), 2))
+    finally:
+        device_prover_full._chain = chain
+        device_prover_full.fetch = fetch
+    print("no synchronising call between upload and the one fetch "
+          "(chain run under set_sync_debug_mode('error'))")
+    print(f"device prove ELL=124: cold {cold_ms:.1f} ms, warm {dev_warm:.1f} "
+          f"ms (median of 5); host prove: cold {host_ms[0]:.1f} ms, warm "
+          f"{host_ms[1]:.1f} ms earlier, {host_warm[0]:.1f} and "
+          f"{host_warm[1]:.1f} ms around the device runs; on {card}; "
+          f"byte-identical proofs, verified, flipped byte rejected; "
+          f"launches per device prove {counts}")
     return counts
 
 
@@ -550,8 +850,12 @@ def main() -> int:
     card = phase_env(dev)
     phase_build()
     timings = phase_kernels(dev)
+    timings.update(phase_kernels_device_prover(dev))
     verify_counts, crs, insts, gv = phase_verifier(dev, card)
-    prove_counts = phase_prover(dev, card, crs, insts, gv)
+    prove_counts, post, proof, host_ms = phase_prover(dev, card, crs, insts,
+                                                      gv)
+    device_counts = phase_device_prover(dev, card, crs, insts, gv, post,
+                                        proof, host_ms)
     check("jax" not in sys.modules
           and "go_curdleproofs_tpu" not in sys.modules,
           "neither jax nor the JAX package imported")
@@ -560,9 +864,11 @@ def main() -> int:
     summary = [dict(name=name, route="cuda",
                     source=CSRC + kernels.KERNEL_SOURCE[name],
                     replaces=REPLACES[name],
-                    launches=verify_counts[name] + prove_counts[name],
+                    launches=verify_counts[name] + prove_counts[name]
+                    + device_counts[name],
                     launches_two_verifies=verify_counts[name],
                     launches_one_prove=prove_counts[name],
+                    launches_one_device_prove=device_counts[name],
                     library_ms=None, **timings[name]) for name in REPLACES]
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -1,13 +1,21 @@
 """State carried between the JAX package and the port, as numpy arrays and
 Python ints (this module imports neither jax nor the JAX package).
 
-Three forms cross:
+Six forms cross:
   * RNS channel arrays of the JAX package's device state ->
     `pointvec_from_jax`;
   * canonical projective coordinates, as the JAX package's `to_ints` gives
     them per plane -> `pointvec_from_ints`, and back with `pointvec_to_ints`;
   * a CRS as affine int pairs (None for infinity) -> `crs_from_affine`,
-    and back with `crs_to_affine`.
+    and back with `crs_to_affine`;
+  * scalar-field vectors: the JAX package's `fr.Element` limbs ([n, 33]
+    base-256 limbs, any interval) <-> the port's [n, 8] Montgomery words,
+    by canonical value: `fr_from_jax`, `fr_to_jax`;
+  * GLV window digit arrays ([2n, 33] signed digits, the same layout on
+    both sides): `digits_from_jax`, `digits_to_jax`;
+  * a device transcript state: the JAX package's (state [200] int32 bytes,
+    pos, pos_begin) <-> the port's `strobe_dev.TState`: `tstate_from_jax`,
+    `tstate_to_jax`.
 
 The JAX package holds a field element as 74 RNS channels: residues modulo
 the 74 largest 11-bit primes, in descending order, of which the first 37
@@ -25,8 +33,8 @@ import numpy as np
 import torch
 
 from .models import curdleproof
-from .ops import curve, fp
-from .utils.field_host import P
+from .ops import curve, fp, fr, strobe_dev
+from .utils.field_host import P, R
 
 RNS_PRIME_BITS = 11
 RNS_BASE = 37                  # primes per base; the array holds two bases
@@ -117,3 +125,44 @@ def crs_to_affine(crs: curdleproof.CRS) -> Dict[str, object]:
     `crs_from_affine` (or the JAX package's CRS dataclass) takes them."""
     return dict(gs=list(crs.gs), hs=list(crs.hs), h=crs.h, gt=crs.gt,
                 gu=crs.gu, gsum=crs.gsum, hsum=crs.hsum)
+
+
+FR_JAX_LIMBS = 33              # base-256 limbs of the JAX package's fr.Element
+
+
+def fr_from_jax(limbs: np.ndarray, *, device: torch.device) -> torch.Tensor:
+    """The JAX package's fr.Element limbs (numpy [n, 33], base 256, signed
+    or unreduced limbs allowed) -> the port's [n, 8] elements on `device`."""
+    rows = np.asarray(limbs).reshape(-1, FR_JAX_LIMBS).astype(np.int64)
+    return fr.from_ints([sum(int(v) << (8 * i) for i, v in enumerate(row)) % R
+                         for row in rows.tolist()], device)
+
+
+def fr_to_jax(x: torch.Tensor) -> np.ndarray:
+    """The port's [n, 8] elements -> canonical base-256 limbs [n, 33] int32
+    (the limbs of a CANONICAL fr.Element of the JAX package)."""
+    return np.stack([np.frombuffer(v.to_bytes(FR_JAX_LIMBS, "little"),
+                                   np.uint8).astype(np.int32)
+                     for v in fr.to_ints(x)])
+
+
+def digits_from_jax(digits: np.ndarray, *,
+                    device: torch.device) -> torch.Tensor:
+    """GLV window digits [..., 2n, W] as numpy -> int32 tensor on `device`."""
+    return torch.from_numpy(np.array(digits, dtype=np.int32)).to(device)
+
+
+def digits_to_jax(digits: torch.Tensor) -> np.ndarray:
+    return digits.cpu().numpy().astype(np.int32)
+
+
+def tstate_from_jax(st: np.ndarray, pos: int, pos_begin: int, *,
+                    device: torch.device) -> strobe_dev.TState:
+    """The JAX package's device transcript (state [200] int32 byte values,
+    static pos and pos_begin) -> the port's TState on `device`."""
+    state = torch.from_numpy(np.asarray(st).astype(np.uint8)).to(device)
+    return strobe_dev.TState(state, int(pos), int(pos_begin))
+
+
+def tstate_to_jax(ts: strobe_dev.TState) -> Tuple[np.ndarray, int, int]:
+    return ts.st.cpu().numpy().astype(np.int32), ts.pos, ts.pos_begin

@@ -6,7 +6,7 @@ curdleproof.py; curdleproof.go and crs.go of the Go reference).
   Step 3: R = <as, Rs>, S = <as, Ss>; T = com(k*R), U = com(k*S); same-scalar;
   Step 4: same-multiscalar over the concatenated bases.
 
-Prove is host logic over one device API (`curve.StackedVec.msm_many` behind
+The default prove is host logic over one device API (`curve.StackedVec.msm_many` behind
 `curve.FoldedBases`) and `curve.batch_scalar_mul`; the transcript order and
 the order of draws from `rand` fix the proof bytes. Verify replays the
 transcript, runs the sub-verifiers in the reference's order and defers
@@ -28,6 +28,7 @@ from ..utils.field_host import Affine
 from ..utils.rand import Rand
 from ..utils.transcript import Transcript
 from . import same_multiscalar, same_permutation, same_scalar
+from .device_mode import DEFAULT_PROVER, check_prover
 from .group_commitment import GroupCommitment
 from .msm_accumulator import MsmAccumulator, StaticBases
 
@@ -107,9 +108,17 @@ class Proof:
 
 def prove(crs: CRS, Rs: List[Affine], Ss: List[Affine], Ts: List[Affine],
           Us: List[Affine], M: Affine, perm: Sequence[int], k: int,
-          rs_m: List[int], rand: Rand, *, device: torch.device) -> Proof:
-    """curdleproof.go:38-197, host-orchestrated: every MSM is a device call,
-    the transcript and the Fr arithmetic run on the host."""
+          rs_m: List[int], rand: Rand, *, device: torch.device,
+          prover: str = DEFAULT_PROVER) -> Proof:
+    """curdleproof.go:38-197. prover="host": host-orchestrated, every MSM
+    is a device call, the transcript and the Fr arithmetic run on the host.
+    prover="device": the whole prove as one chain of device work with a
+    single fetch (models/device_prover_full.py), byte-identical."""
+    if check_prover(prover) == "device":
+        from . import device_prover_full
+        return device_prover_full.prove_on_device(
+            crs, Rs, Ss, Ts, Us, M, perm, k, rs_m, rand, device=device)
+
     transcript = Transcript(LABEL_TRANSCRIPT)
 
     # Step 1

@@ -12,7 +12,7 @@ accumulator as linear combinations: no group operation and no device call.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import BinaryIO, List, Optional, Sequence, Tuple
+from typing import BinaryIO, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -22,6 +22,7 @@ from ..utils import field_host as fh
 from ..utils.field_host import Affine
 from ..utils.rand import Rand
 from ..utils.transcript import Transcript
+from .device_mode import DEFAULT_PROVER, check_prover
 from .msm_accumulator import MsmAccumulator, as_terms
 
 LABEL_STEP1 = b"ipa_step1"
@@ -36,10 +37,12 @@ class CRS:
     gs: List[Affine]
     gs_prime: List[Affine]
     h: Affine
-    # optional device-resident bases: the grand-product prover hands over a
-    # two-row FoldedBases view of its one [Gs|Hs] row, whose second row is
-    # lazy: Gs'[i] = diag[i] * Gs[i] (grandproductargument.go:94-103)
-    stacked: Optional[curve.FoldedBases] = None
+    # optional device-resident bases: the grand-product prover hands over
+    # its one [Gs|Hs] row, whose second row is lazy: Gs'[i] = diag[i] *
+    # Gs[i] (grandproductargument.go:94-103): a two-row FoldedBases view for
+    # the host prover, the StackedVec itself plus `diag` for the device one
+    stacked: Optional[Union[curve.FoldedBases, curve.StackedVec]] = None
+    diag: Optional[List[int]] = None
 
 
 @dataclass
@@ -105,13 +108,23 @@ def generate_ipa_blinders(rand: Rand, cs: Sequence[int],
 
 def prove(crs: CRS, C: Affine, D: Affine, z: int, cs: List[int],
           ds: List[int], transcript: Transcript, rand: Rand, *,
-          device: torch.device) -> Proof:
-    """innerproductargument.go:42-188."""
+          device: torch.device, prover: str = DEFAULT_PROVER) -> Proof:
+    """innerproductargument.go:42-188. prover="device" runs the whole
+    recursion device-resident (models/device_prover2.py), same bytes."""
     if len(cs) != len(ds):
         raise ValueError("cs and ds are not the same length")
     n = len(cs)
     if n & (n - 1) != 0:
         raise ValueError("cs and ds are not a power of two")
+
+    if check_prover(prover) == "device":
+        from . import device_prover2
+        stacked = crs.stacked
+        if isinstance(stacked, curve.FoldedBases):
+            stacked = stacked.sv
+        return device_prover2.prove_ipa_on_device(
+            crs.gs, crs.gs_prime, crs.h, C, D, z, cs, ds, transcript, rand,
+            device=device, stacked=stacked, diag=crs.diag)
 
     # Step 1
     rs_c, rs_d = generate_ipa_blinders(rand, cs, ds)

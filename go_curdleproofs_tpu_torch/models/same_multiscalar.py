@@ -21,6 +21,7 @@ from ..utils import field_host as fh
 from ..utils.field_host import Affine
 from ..utils.rand import Rand
 from ..utils.transcript import Transcript
+from .device_mode import DEFAULT_PROVER, check_prover
 from .msm_accumulator import MsmAccumulator
 
 LABEL_STEP1 = b"same_msm_step1"
@@ -69,8 +70,14 @@ class Proof:
 def prove(G: List[Affine], A: Affine, Z_t: Affine, Z_u: Affine,
           T: List[Affine], U: List[Affine], x: List[int],
           transcript: Transcript, rand: Rand, *,
-          device: torch.device) -> Proof:
-    """samemultiscalarargument.go:37-157."""
+          device: torch.device, prover: str = DEFAULT_PROVER) -> Proof:
+    """samemultiscalarargument.go:37-157. prover="device" runs the whole
+    recursion device-resident (models/device_prover2.py), same bytes."""
+    if check_prover(prover) == "device":
+        from . import device_prover2
+        return device_prover2.prove_samemsm_on_device(
+            G, A, Z_t, Z_u, T, U, x, transcript, rand, device=device)
+
     n = len(x)
     r = rand.get_frs(n)
 

@@ -16,6 +16,7 @@ from ..utils.field_host import Affine
 from ..utils.rand import Rand
 from ..utils.transcript import Transcript
 from . import grand_product
+from .device_mode import DEFAULT_PROVER
 from .msm_accumulator import MsmAccumulator
 
 LABEL_STEP1 = b"same_perm_step1"
@@ -53,8 +54,9 @@ def permute(vs: Sequence, perm: Sequence[int]) -> list:
 def prove(crs: CRS, A: Affine, M: Affine, as_: List[int],
           permutation: Sequence[int], rs_a: List[int], rs_m: List[int],
           transcript: Transcript, rand: Rand, *,
-          device: torch.device) -> Proof:
-    """samepermutationargument.go:32-101."""
+          device: torch.device, prover: str = DEFAULT_PROVER) -> Proof:
+    """samepermutationargument.go:32-101; `prover` goes on to the
+    grand-product argument."""
     # Step 1
     transcript.append_points(LABEL_STEP1, A, M)
     transcript.append_scalars(LABEL_STEP1, *as_)
@@ -81,7 +83,7 @@ def prove(crs: CRS, A: Affine, M: Affine, as_: List[int],
 
     gpa_proof = grand_product.prove(
         grand_product.CRS(crs.gs, crs.hs, crs.h), B, p, bs, rs_b,
-        transcript, rand, device=device)
+        transcript, rand, device=device, prover=prover)
     return Proof(B, gpa_proof)
 
 

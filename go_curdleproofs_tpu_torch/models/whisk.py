@@ -6,7 +6,8 @@ proofs, 48-byte compressed tracker points.
 A shuffle verification runs two device programs: one batched decode of
 every proof and tracker point, and the accumulator's final MSM. Generating
 a shuffle proof decodes the trackers in one batch, shuffles them with one
-batched scalar multiplication and runs the host-orchestrated prover. The
+batched scalar multiplication and runs the prover the caller names
+(host-orchestrated by default, or device-resident with one fetch). The
 tracker proof is a Schnorr argument of a handful of host group operations
 and touches no device.
 """
@@ -26,6 +27,7 @@ from ..utils.field_host import Affine
 from ..utils.rand import Rand
 from ..utils.transcript import Transcript
 from . import curdleproof
+from .device_mode import DEFAULT_PROVER
 
 G1POINT_SIZE = 48
 N = 128
@@ -139,10 +141,12 @@ def _pool_tracker_sets(pre_st, post_st, pool):
 
 def generate_whisk_shuffle_proof(
         crs: CRS, pre_trackers: List[WhiskTracker], rand: Rand, *,
-        device: torch.device) -> Tuple[List[WhiskTracker], bytes]:
+        device: torch.device,
+        prover: str = DEFAULT_PROVER) -> Tuple[List[WhiskTracker], bytes]:
     """whisk/whisk.go:63-114: (post trackers, proof bytes). ell is
     len(pre_trackers): ELL for the Whisk deployment, smaller powers of two
-    minus 4 in tests."""
+    minus 4 in tests. prover: "host" (host-orchestrated) or "device" (the
+    one-fetch device-resident prover); the bytes are the same."""
     permutation = rand.generate_permutation(len(pre_trackers))
     k = rand.get_fr()
 
@@ -156,7 +160,7 @@ def generate_whisk_shuffle_proof(
         crs.gs, crs.hs, Rs, Ss, permutation, k, rand, device=device)
 
     proof = curdleproof.prove(crs, Rs, Ss, Ts, Us, M, permutation, k, rs_m,
-                              rand, device=device)
+                              rand, device=device, prover=prover)
     proof_bytes = WhiskShuffleProof(M, proof).serialize()
     post_trackers = [WhiskTracker.from_points(t, u) for t, u in zip(Ts, Us)]
     return post_trackers, proof_bytes

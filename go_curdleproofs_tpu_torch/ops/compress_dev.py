@@ -11,16 +11,24 @@ point and the host does no inversion.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 from ..utils.field_host import Affine
-from . import fp
+from . import fp, halflimb
 from .curve import PointVec
 
 FLAG_SMALLEST = 0x80
 FLAG_LARGEST = 0xA0
 FLAG_INFINITY = 0xC0
+
+
+@functools.lru_cache(maxsize=None)
+def _inf_row(device: torch.device) -> torch.Tensor:
+    """The 48-byte encoding of infinity on `device` (uploaded once)."""
+    return halflimb.upload([FLAG_INFINITY] + [0] * 47, torch.uint8, device)
 
 
 def _affine_bytes(points: PointVec):
@@ -33,9 +41,7 @@ def _affine_bytes(points: PointVec):
     flag = torch.where(fp.lex_gt_half(y), FLAG_LARGEST, FLAG_SMALLEST)
     blob[..., 0] |= flag.to(torch.uint8)
     is_inf = fp.is_zero(points.z)[..., None]
-    inf_row = torch.zeros(48, dtype=torch.uint8, device=blob.device)
-    inf_row[0] = FLAG_INFINITY
-    return (torch.where(is_inf, inf_row, blob),
+    return (torch.where(is_inf, _inf_row(blob.device), blob),
             torch.where(is_inf, torch.zeros_like(y_be), y_be))
 
 

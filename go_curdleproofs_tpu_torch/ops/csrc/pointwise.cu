@@ -1,6 +1,8 @@
-// The three pointwise kernels, written for Hopper (sm_90a): batched Fp
-// multiply, complete point add, complete point double, with a plain C
-// launcher each for ctypes (go_curdleproofs_tpu_torch/ops/kernels.py).
+// The pointwise kernels, written for Hopper (sm_90a): batched Fp multiply,
+// complete point add, complete point double, the fused 16*acc + sel step,
+// and the scalar field's batched multiply and fixed-exponent ladder, with a
+// plain C launcher each for ctypes
+// (go_curdleproofs_tpu_torch/ops/kernels.py).
 //
 // Every launcher enqueues on the stream it is given, allocates nothing, and
 // returns cudaGetLastError() so that a refused launch reaches the caller.
@@ -22,8 +24,10 @@
 #include <cuda_runtime.h>
 
 #include "fp.cuh"
+#include "fr.cuh"
 
 using curdle::Fp;
+using curdle::Fr;
 using curdle::Point;
 
 namespace {
@@ -111,6 +115,99 @@ point_double_kernel(const Fp* __restrict__ px, const Fp* __restrict__ py,
   }
 }
 
+// ---------------------------------------------------------------------------
+// point_x16_add: (ox, oy, oz)[i] = 16 * acc[i] + sel[i]: four complete
+// doublings and one complete add in one launch.
+//
+// Replaces go_curdleproofs_tpu/ops/rns_kernels.py:point_x16_add, the step of
+// the window-at-a-time Horner loop (acc' = 16*acc + selected table entry).
+// Same contract: complete (infinity in either operand; acc = sel after the
+// doublings is a doubling inside the add), outputs never alias inputs. One
+// thread per point walks 4 * 8 + 12 = 44 dependent field products in
+// registers; the four intermediate points of the unfused form never touch
+// device memory. Bound: operations (44 products over 432 bytes), but at the
+// prover's batches (2 to 24 points) one thread's chain sets the time.
+
+__global__ void __launch_bounds__(kPointThreads)
+point_x16_add_kernel(const Fp* __restrict__ ax, const Fp* __restrict__ ay,
+                     const Fp* __restrict__ az, const Fp* __restrict__ sx,
+                     const Fp* __restrict__ sy, const Fp* __restrict__ sz,
+                     Fp* __restrict__ ox, Fp* __restrict__ oy,
+                     Fp* __restrict__ oz, long long n) {
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += step) {
+    Point acc, s;
+    acc.x = ax[i];
+    acc.y = ay[i];
+    acc.z = az[i];
+    s.x = sx[i];
+    s.y = sy[i];
+    s.z = sz[i];
+    for (int k = 0; k < 4; ++k) curdle::point_double(acc, acc);
+    curdle::point_add(acc, acc, s);
+    ox[i] = acc.x;
+    oy[i] = acc.y;
+    oz[i] = acc.z;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fr_mont_mul: out[i] = a[i * a_stride] * b[i * b_stride] / R mod r over the
+// scalar field, strides as mont_mul's (0 broadcasts one element).
+//
+// No TPU kernel stands behind it: the JAX package leaves Fr products to XLA,
+// which fuses them into each prover piece. Unfused torch integer ops cost
+// ~60 launches a product, so the device prover's lane algebra ([128] lanes,
+// several products a round) goes through this one. a may be raw words below
+// 2^256 (fr.cuh), which is how values enter and leave Montgomery form.
+// Bound: bytes (2 * 64 multiply-adds over 96 bytes), in practice the launch.
+
+__global__ void __launch_bounds__(kMulThreads)
+fr_mont_mul_kernel(const Fr* __restrict__ a, const Fr* __restrict__ b,
+                   Fr* __restrict__ out, long long n, int a_stride,
+                   int b_stride) {
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += step) {
+    const Fr x = a[i * a_stride];
+    const Fr y = b[i * b_stride];
+    Fr r;
+    curdle::fr_mul(r, x, y);
+    out[i] = r;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fr_pow_fixed: out[i] = x[i]^e over the scalar field, e fixed for the launch.
+//
+// Replaces go_curdleproofs_tpu/ops/limb_kernels.py:pow_fixed (the Fr ladder
+// over 33 base-256 f32 limbs with its roll-and-dot multiply, rows padded to
+// 8, at most 1024). Here one thread walks one element's ladder MSB-first on
+// 8-word CIOS products; the exponent words are a kernel argument, so every
+// thread takes the same branch at every bit. Any batch size. 0 maps to 0.
+// Bound: operations in name (~380 dependent products an element for r - 2),
+// but the prover inverts 1 to 8 elements at a time, so one thread's chain of
+// dependent multiply-adds sets the time.
+
+struct FrExponent {
+  uint32_t w[curdle::FRW];
+};
+
+__global__ void fr_pow_fixed_kernel(const Fr* __restrict__ x,
+                                    Fr* __restrict__ out, long long n,
+                                    FrExponent e, int nbits) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Fr base = x[i];
+  Fr acc = base;  // the top bit is 1
+  for (int b = nbits - 2; b >= 0; --b) {
+    curdle::fr_mul(acc, acc, acc);
+    if ((e.w[b >> 5] >> (b & 31)) & 1u) curdle::fr_mul(acc, acc, base);
+  }
+  out[i] = acc;
+}
+
 int blocks_for(long long n, int threads) {
   long long b = (n + threads - 1) / threads;
   return (int)(b < kMaxBlocks ? b : kMaxBlocks);
@@ -152,6 +249,41 @@ int curdle_point_double(const void* px, const void* py, const void* pz,
                         (cudaStream_t)stream>>>(
       (const Fp*)px, (const Fp*)py, (const Fp*)pz, (Fp*)ox, (Fp*)oy, (Fp*)oz,
       n);
+  return (int)cudaGetLastError();
+}
+
+int curdle_point_x16_add(const void* ax, const void* ay, const void* az,
+                         const void* sx, const void* sy, const void* sz,
+                         void* ox, void* oy, void* oz, long long n,
+                         void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  point_x16_add_kernel<<<blocks_for(n, kPointThreads), kPointThreads, 0,
+                         (cudaStream_t)stream>>>(
+      (const Fp*)ax, (const Fp*)ay, (const Fp*)az, (const Fp*)sx,
+      (const Fp*)sy, (const Fp*)sz, (Fp*)ox, (Fp*)oy, (Fp*)oz, n);
+  return (int)cudaGetLastError();
+}
+
+int curdle_fr_mont_mul(const void* a, const void* b, void* out, long long n,
+                       int a_stride, int b_stride, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  fr_mont_mul_kernel<<<blocks_for(n, kMulThreads), kMulThreads, 0,
+                       (cudaStream_t)stream>>>((const Fr*)a, (const Fr*)b,
+                                               (Fr*)out, n, a_stride,
+                                               b_stride);
+  return (int)cudaGetLastError();
+}
+
+// `exponent` points to 8 host words.
+int curdle_fr_pow_fixed(const void* x, void* out, long long n,
+                        const uint32_t* exponent, int nbits, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  FrExponent e;
+  for (int j = 0; j < curdle::FRW; ++j) e.w[j] = exponent[j];
+  const int threads = 128;
+  const long long blocks = (n + threads - 1) / threads;
+  fr_pow_fixed_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const Fr*)x, (Fr*)out, n, e, nbits);
   return (int)cudaGetLastError();
 }
 

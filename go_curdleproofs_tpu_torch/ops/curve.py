@@ -14,7 +14,12 @@ operation goes through a kernel wrapper of ops/kernels.py: `add` and
 window sums) through `point_add` / `point_double`, the MSM wide phase
 through `msm_select_reduce`, the Horner tail through `windowed_combine`.
 
-The prover's device API is `StackedVec.msm_many` (one wide-phase launch
+A per-point scalar multiplication has two forms: `scalar_mul_device` (all
+windows selected, one `windowed_combine` launch) and `scalar_mul_steps`
+(the window-at-a-time loop on the fused `point_x16_add` step), which the
+device-resident prover uses for its handful-of-points multiplications.
+
+The host prover's device API is `StackedVec.msm_many` (one wide-phase launch
 over all (job, base row) terms, one Horner launch, one fetch) behind the
 scalar-side folding view `FoldedBases`, plus `msm_batch` and
 `batch_scalar_mul`.
@@ -22,6 +27,7 @@ scalar-side folding view `FoldedBases`, plus `msm_batch` and
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -29,7 +35,7 @@ import torch
 
 from ..utils import field_host as fh
 from ..utils.field_host import Affine
-from . import fp, glv, kernels
+from . import fp, glv, halflimb, kernels
 
 B3 = 12                         # 3*b for y^2 = x^3 + 4
 WINDOW_BITS = glv.WINDOW_BITS
@@ -68,6 +74,12 @@ def double(p: PointVec) -> PointVec:
     """Complete projective doubling (RCB16 algorithm 9, a = 0) through the
     `point_double` kernel wrapper."""
     return kernels.point_double(p)
+
+
+def x16_add(acc: PointVec, sel: PointVec) -> PointVec:
+    """16 * acc + sel, the serial step of a window-at-a-time Horner loop,
+    through the `point_x16_add` kernel wrapper."""
+    return kernels.point_x16_add(acc, sel)
 
 
 def neg(p: PointVec) -> PointVec:
@@ -130,7 +142,8 @@ def scalars_to_digits(scalars: Sequence[int]) -> np.ndarray:
 
 
 def _digits(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int32)).to(device)
+    return halflimb.upload(np.ascontiguousarray(arr, dtype=np.int32),
+                           torch.int32, device)
 
 
 def _beta_elem(device: torch.device) -> torch.Tensor:
@@ -177,6 +190,18 @@ def table_select_windows(table: PointVec, digits: torch.Tensor) -> PointVec:
     y = pick(table.y)
     neg_mask = (digits < 0).transpose(-2, -1)                  # [..., W, n]
     return PointVec(pick(table.x), fp.where(neg_mask, fp.neg(y), y),
+                    pick(table.z))
+
+
+def table_select(table: PointVec, neg_y: torch.Tensor, mag: torch.Tensor,
+                 neg: torch.Tensor) -> PointVec:
+    """One window's select: table [9, ..., n] with its negated y plane,
+    digit magnitudes `mag` [..., n] (int64) and signs `neg` [..., n]
+    (bool) -> [..., n] contiguous points (entry |d|, -y where d < 0)."""
+    idx = mag[None, ..., None].expand((1,) + mag.shape + (fp.NWORDS,))
+    pick = lambda t: torch.gather(t, 0, idx)[0]
+    return PointVec(pick(table.x),
+                    fp.where(neg, pick(neg_y), pick(table.y)),
                     pick(table.z))
 
 
@@ -234,11 +259,33 @@ def scalar_mul_device(points: PointVec, digits: torch.Tensor) -> PointVec:
     return _halves_add(_windowed_combine(sel, win_axis=-3))
 
 
+def scalar_mul_steps(points: PointVec, digits: torch.Tensor) -> PointVec:
+    """out[i] = s_i * P_i over [..., n] (GLV digits [..., 2n, W]) as the
+    window-at-a-time loop: per window one `table_select` of that digit
+    column and one fused `x16_add`, so the [W, 2n] selected points of
+    `scalar_mul_device` are never materialised. The device prover uses it
+    for its per-point multiplications of a handful of points."""
+    table = extend_table_glv(build_table(points))          # [9, ..., 2n]
+    neg_y = fp.neg(table.y)              # once, not once a window
+    mag, neg = digits.abs().long(), digits < 0
+    acc = infinity(table.x.shape[1:-1], device=points.x.device)
+    for w in range(digits.shape[-1]):
+        acc = x16_add(acc, table_select(table, neg_y, mag[..., w],
+                                        neg[..., w]))
+    return _halves_add(acc)
+
+
+@functools.lru_cache(maxsize=None)
+def _rows_index(rows: Tuple[int, ...], device: torch.device) -> torch.Tensor:
+    """Base-row indices on `device`, uploaded once per tuple and device."""
+    return halflimb.upload(rows, torch.long, device)
+
+
 def msm_rows_windows_from_table(table: PointVec, digits: torch.Tensor,
                                 rows: Sequence[int]) -> PointVec:
     """Window sums [m, W] of MSM jobs over rows of an extended table
     [9, k, 2n]; job j uses base row rows[j] and digits[j] [2n, W]."""
-    idx = torch.as_tensor(list(rows), dtype=torch.long, device=table.x.device)
+    idx = _rows_index(tuple(int(r) for r in rows), table.x.device)
     tab = pmap(lambda t: t.index_select(1, idx).contiguous(), table)
     return kernels.msm_select_reduce(tab, digits.contiguous())
 

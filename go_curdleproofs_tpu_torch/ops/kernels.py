@@ -1,8 +1,10 @@
-"""The port's six device kernels: wrappers, plain versions, counters.
+"""The port's device kernels: wrappers, plain versions, counters.
 
 Each kernel (CUDA C++ for sm_90a; ops/csrc/pointwise.cu holds mont_mul,
-point_add and point_double, ops/csrc/kernels.cu holds pow_fixed,
-windowed_combine and msm_select_reduce) has
+point_add, point_double, point_x16_add, fr_mont_mul and fr_pow_fixed,
+ops/csrc/kernels.cu holds pow_fixed, windowed_combine and
+msm_select_reduce, ops/csrc/transcript.cu holds strobe_absorb_stream and
+strobe_challenge32) has
 
   * a wrapper that checks its tensors and, for CUDA tensors, launches the
     kernel on PyTorch's current stream, raising if the launch is refused;
@@ -30,26 +32,31 @@ import subprocess
 import threading
 from pathlib import Path
 from types import SimpleNamespace
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
-from . import curve, fp
+from ..utils.field_host import R as FR_MODULUS
+from . import curve, fp, fr, keccak_dev
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_CU_SOURCES = ("kernels.cu", "pointwise.cu")      # one library each
-_SOURCES = ("fp.cuh",) + _CU_SOURCES
+_CU_SOURCES = ("kernels.cu", "pointwise.cu", "transcript.cu")  # a library each
+_SOURCES = ("fp.cuh", "fr.cuh") + _CU_SOURCES
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-KERNEL_NAMES = ("mont_mul", "point_add", "point_double", "pow_fixed",
-                "windowed_combine", "msm_select_reduce")
 # the .cu file that holds each kernel
 KERNEL_SOURCE = {"mont_mul": "pointwise.cu", "point_add": "pointwise.cu",
                  "point_double": "pointwise.cu", "pow_fixed": "kernels.cu",
                  "windowed_combine": "kernels.cu",
-                 "msm_select_reduce": "kernels.cu"}
+                 "msm_select_reduce": "kernels.cu",
+                 "point_x16_add": "pointwise.cu",
+                 "fr_pow_fixed": "pointwise.cu",
+                 "fr_mont_mul": "pointwise.cu",
+                 "strobe_absorb_stream": "transcript.cu",
+                 "strobe_challenge32": "transcript.cu"}
+KERNEL_NAMES = tuple(KERNEL_SOURCE)
 launches: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 
 
@@ -122,15 +129,21 @@ def build(force: bool = False) -> Dict[str, Path]:
 
 
 def _load() -> SimpleNamespace:
-    """The launchers of both libraries, with their argument types."""
+    """The launchers of all libraries, with their argument types."""
     global _lib
     with _lib_lock:
         if _lib is None:
             paths = build()
             main = ctypes.CDLL(str(paths["kernels.cu"]))
             pointwise = ctypes.CDLL(str(paths["pointwise.cu"]))
+            transcript = ctypes.CDLL(str(paths["transcript.cu"]))
             vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             fns = SimpleNamespace(
+                point_x16_add=pointwise.curdle_point_x16_add,
+                fr_mont_mul=pointwise.curdle_fr_mont_mul,
+                fr_pow_fixed=pointwise.curdle_fr_pow_fixed,
+                strobe_absorb_stream=transcript.curdle_strobe_absorb_stream,
+                strobe_challenge32=transcript.curdle_strobe_challenge32,
                 pow_fixed=main.curdle_pow_fixed,
                 windowed_combine=main.curdle_windowed_combine,
                 msm_select_reduce=main.curdle_msm_select_reduce,
@@ -144,6 +157,14 @@ def _load() -> SimpleNamespace:
             fns.mont_mul.argtypes = [vp, vp, vp, i64, i32, i32, vp]
             fns.point_add.argtypes = [vp] * 9 + [i64, vp]
             fns.point_double.argtypes = [vp] * 6 + [i64, vp]
+            fns.point_x16_add.argtypes = [vp] * 9 + [i64, vp]
+            fns.fr_mont_mul.argtypes = [vp, vp, vp, i64, i32, i32, vp]
+            fns.fr_pow_fixed.argtypes = [
+                vp, vp, i64, ctypes.POINTER(ctypes.c_uint32), i32, vp]
+            fns.strobe_absorb_stream.argtypes = [
+                vp, vp, vp, i32, i32, vp, i32, i32, vp]
+            fns.strobe_challenge32.argtypes = [
+                vp, vp, vp, ctypes.c_char_p, i32, i32, i32, vp]
             for fn in vars(fns).values():
                 fn.restype = i32
             _lib = fns
@@ -159,13 +180,13 @@ def _check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
-def _route(*tensors: torch.Tensor) -> str:
+def _route(*tensors: torch.Tensor, dtype: torch.dtype = torch.int32) -> str:
     """'cpu' (plain version) or 'cuda' (kernel), after checking that every
-    tensor is int32, contiguous and on one device."""
+    tensor is of `dtype`, contiguous and on one device."""
     dev = tensors[0].device
     for t in tensors:
-        if t.dtype != torch.int32:
-            raise TypeError(f"kernel input must be int32, got {t.dtype}")
+        if t.dtype != dtype:
+            raise TypeError(f"kernel input must be {dtype}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("kernel input must be contiguous")
         if t.device != dev:
@@ -410,3 +431,247 @@ def msm_select_reduce(table: curve.PointVec,
     _check(rc, "msm_select_reduce")
     launches["msm_select_reduce"] += 1
     return out
+
+
+# -- B4: the fused 16*acc + sel step -------------------------------------------
+
+def point_x16_add_plain(acc: curve.PointVec,
+                        sel: curve.PointVec) -> curve.PointVec:
+    for _ in range(curve.WINDOW_BITS):
+        acc = point_double_plain(acc)
+    return point_add_plain(acc, sel)
+
+
+def point_x16_add(acc: curve.PointVec, sel: curve.PointVec) -> curve.PointVec:
+    """16 * acc + sel pointwise over [..., 12]-coordinate batches of one
+    shape: four complete doublings and one complete add in one launch.
+    The result is always fresh tensors."""
+    _check_points("point_x16_add", acc, sel)
+    if _route(*acc, *sel) == "cpu":
+        return point_x16_add_plain(acc, sel)
+    out = _empty_points(acc.x)
+    lib = _load()
+    with torch.cuda.device(acc.x.device):
+        rc = lib.point_x16_add(*(t.data_ptr() for t in acc),
+                               *(t.data_ptr() for t in sel),
+                               *(t.data_ptr() for t in out),
+                               acc.x.numel() // fp.NWORDS,
+                               _stream(acc.x.device))
+    _check(rc, "point_x16_add")
+    launches["point_x16_add"] += 1
+    return out
+
+
+# -- the scalar field: batched multiply, and B8, its fixed-exponent ladder ------
+
+fr_mont_mul_plain = fr.mul_plain
+fr_pow_fixed_plain = fr.pow_fixed_plain
+
+
+def fr_mont_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b / R mod r elementwise over [..., 8] scalar-field elements. The
+    operands have one shape, or either is a single [8] element that
+    multiplies the whole batch (read in place by the kernel)."""
+    for t in (a, b):
+        if t.ndim < 1 or t.shape[-1] != fr.NWORDS:
+            raise ValueError(f"fr_mont_mul: bad element shape "
+                             f"{tuple(t.shape)}")
+    if a.shape != b.shape and a.ndim != 1 and b.ndim != 1:
+        raise ValueError(f"fr_mont_mul: shapes {tuple(a.shape)} and "
+                         f"{tuple(b.shape)} differ and neither is one "
+                         f"element")
+    if _route(a, b) == "cpu":
+        return fr_mont_mul_plain(a, b)
+    shape = a.shape if a.ndim >= b.ndim else b.shape
+    out = torch.empty(shape, dtype=torch.int32, device=a.device)
+    lib = _load()
+    with torch.cuda.device(a.device):
+        rc = lib.fr_mont_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                             out.numel() // fr.NWORDS,
+                             int(a.shape == shape), int(b.shape == shape),
+                             _stream(a.device))
+    _check(rc, "fr_mont_mul")
+    launches["fr_mont_mul"] += 1
+    return out
+
+
+def fr_pow_fixed(x: torch.Tensor, exponent: int) -> torch.Tensor:
+    """x^exponent elementwise over [..., 8] scalar-field elements
+    (exponent >= 1); with exponent r - 2 the inverse, 0 -> 0."""
+    if exponent < 1 or exponent.bit_length() > 32 * fr.NWORDS:
+        raise ValueError("fr_pow_fixed exponent must lie in [1, 2^256)")
+    if x.ndim < 1 or x.shape[-1] != fr.NWORDS:
+        raise ValueError(f"fr_pow_fixed: bad element shape {tuple(x.shape)}")
+    if _route(x) == "cpu":
+        return fr_pow_fixed_plain(x, exponent)
+    out = torch.empty_like(x)
+    words = (ctypes.c_uint32 * fr.NWORDS)(
+        *[(exponent >> (32 * j)) & 0xFFFFFFFF for j in range(fr.NWORDS)])
+    lib = _load()
+    with torch.cuda.device(x.device):
+        rc = lib.fr_pow_fixed(
+            x.data_ptr(), out.data_ptr(), x.numel() // fr.NWORDS, words,
+            exponent.bit_length(), _stream(x.device))
+    _check(rc, "fr_pow_fixed")
+    launches["fr_pow_fixed"] += 1
+    return out
+
+
+# -- the transcript: STROBE-128 absorb and challenge -----------------------------
+
+STROBE_R = 166
+STATE_BYTES = 200
+FLAG_I, FLAG_A, FLAG_C, FLAG_M = 1, 2, 4, 16      # STROBE operation flags
+
+f1600_plain = keccak_dev.f1600
+
+
+def _run_f_plain(st: torch.Tensor, pos: int, pb) -> torch.Tensor:
+    """STROBE's run_f on a fresh copy (pb: int or a one-byte tensor)."""
+    st = st.clone()
+    st[pos] ^= pb
+    st[pos + 1] ^= 0x04
+    st[STROBE_R + 1] ^= 0x80
+    return f1600_plain(st)
+
+
+def strobe_absorb_stream_plain(state: torch.Tensor, stream: torch.Tensor,
+                               pos: int, pbs: torch.Tensor,
+                               final_pb: Optional[int] = None) -> torch.Tensor:
+    st = state.clone()
+    n = stream.shape[0]
+    off = crossing = 0
+    while off < n:
+        take = min(STROBE_R - pos, n - off)
+        st[pos:pos + take] ^= stream[off:off + take]
+        pos += take
+        off += take
+        if pos == STROBE_R:
+            st = _run_f_plain(st, STROBE_R, pbs[crossing])
+            crossing += 1
+            pos = 0
+    if final_pb is not None and pos != 0:
+        st = _run_f_plain(st, pos, final_pb)
+    return st
+
+
+def _check_strobe(name: str, state: torch.Tensor, pos: int) -> None:
+    if state.shape != (STATE_BYTES,):
+        raise ValueError(f"{name}: state must be [200], got "
+                         f"{tuple(state.shape)}")
+    if not 0 <= pos < STROBE_R:
+        raise ValueError(f"{name}: position {pos} outside the rate")
+
+
+def strobe_absorb_stream(state: torch.Tensor, stream: torch.Tensor, pos: int,
+                         pbs: torch.Tensor,
+                         final_pb: Optional[int] = None) -> torch.Tensor:
+    """The [200] uint8 STROBE state after XORing the [n] uint8 `stream`
+    into the rate from position `pos` on. The permutation runs at every
+    rate crossing with that crossing's pos_begin, `pbs[c]` ([crossings]
+    uint8); with `final_pb` given, once more after the stream when the
+    position is not 0 (the forced permutation of a PRF operation, begun at
+    final_pb). Returns a fresh tensor."""
+    _check_strobe("strobe_absorb_stream", state, pos)
+    n = stream.shape[0] if stream.ndim == 1 else -1
+    if n < 0 or pbs.ndim != 1 or pbs.shape[0] != (pos + n) // STROBE_R:
+        raise ValueError(
+            f"strobe_absorb_stream: stream {tuple(stream.shape)} from "
+            f"position {pos} does not cross the rate {tuple(pbs.shape)} "
+            f"times")
+    if final_pb is not None and not 0 <= final_pb <= STROBE_R:
+        raise ValueError(f"strobe_absorb_stream: bad final_pb {final_pb}")
+    if _route(state, stream, pbs, dtype=torch.uint8) == "cpu":
+        return strobe_absorb_stream_plain(state, stream, pos, pbs, final_pb)
+    out = torch.empty_like(state)
+    lib = _load()
+    with torch.cuda.device(state.device):
+        rc = lib.strobe_absorb_stream(
+            state.data_ptr(), out.data_ptr(), stream.data_ptr(), n, pos,
+            pbs.data_ptr(), int(final_pb is not None), final_pb or 0,
+            _stream(state.device))
+    _check(rc, "strobe_absorb_stream")
+    launches["strobe_absorb_stream"] += 1
+    return out
+
+
+def _absorb_bytes_plain(st: torch.Tensor, data: bytes, pos: int,
+                        pos_begin: int):
+    """Byte-wise STROBE absorb with the positions tracked on the host;
+    returns (state, pos, pos_begin)."""
+    st = st.clone()
+    for v in data:
+        st[pos] ^= v
+        pos += 1
+        if pos == STROBE_R:
+            st = _run_f_plain(st, pos, pos_begin)
+            pos = pos_begin = 0
+    return st, pos, pos_begin
+
+
+def _begin_op_plain(st, flags: int, pos: int, pos_begin: int, force_f: bool):
+    st, pos, pb = _absorb_bytes_plain(st, bytes([pos_begin]), pos, pos + 1)
+    st, pos, pb = _absorb_bytes_plain(st, bytes([flags]), pos, pb)
+    if force_f and pos != 0:
+        st, pos, pb = _run_f_plain(st, pos, pb), 0, 0
+    return st, pos, pb
+
+
+def _header32_plain(st, label: bytes, pos: int, pos_begin: int):
+    st, pos, pb = _begin_op_plain(st, FLAG_M | FLAG_A, pos, pos_begin,
+                                  False)
+    return _absorb_bytes_plain(st, label + bytes([32, 0, 0, 0]), pos, pb)
+
+
+def strobe_challenge32_plain(state: torch.Tensor, label: bytes, pos: int,
+                             pos_begin: int
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rejection loop decides on the host (one fetch an attempt): this
+    is the CPU path and the yardstick, not the card's main path."""
+    st, pb = state, pos_begin
+    while True:
+        st, pos, pb = _header32_plain(st, label, pos, pb)
+        st, pos, pb = _begin_op_plain(st, FLAG_I | FLAG_A | FLAG_C, pos,
+                                      pb, True)
+        chal = st[pos:pos + 32].clone()
+        st = st.clone()
+        st[pos:pos + 32].zero_()
+        pos += 32
+        if int.from_bytes(bytes(chal.tolist()), "big") < FR_MODULUS:
+            break
+    st, pos, pb = _header32_plain(st, label, pos, pb)
+    st, pos, pb = _begin_op_plain(st, FLAG_A, pos, pb, False)
+    st = st.clone()
+    for i in range(32):
+        st[pos] ^= chal[i]
+        pos += 1
+        if pos == STROBE_R:
+            st, pos, pb = _run_f_plain(st, pos, pb), 0, 0
+    return st, chal
+
+
+def strobe_challenge32(state: torch.Tensor, label: bytes, pos: int,
+                       pos_begin: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The transcript's get_and_append_challenge on a [200] uint8 STROBE
+    state at (pos, pos_begin): 32-byte challenges are squeezed under
+    `label` until one is below r, and the accepted one is absorbed back as
+    a message under the same label. Returns (state, challenge [32] uint8
+    big-endian), fresh tensors; the decision to accept is taken on the
+    device."""
+    _check_strobe("strobe_challenge32", state, pos)
+    if not 0 <= pos_begin <= STROBE_R:
+        raise ValueError(f"strobe_challenge32: bad pos_begin {pos_begin}")
+    if len(label) > 32:
+        raise ValueError("strobe_challenge32: label longer than 32 bytes")
+    if _route(state, dtype=torch.uint8) == "cpu":
+        return strobe_challenge32_plain(state, label, pos, pos_begin)
+    out = torch.empty_like(state)
+    chal = torch.empty(32, dtype=torch.uint8, device=state.device)
+    lib = _load()
+    with torch.cuda.device(state.device):
+        rc = lib.strobe_challenge32(
+            state.data_ptr(), out.data_ptr(), chal.data_ptr(), bytes(label),
+            len(label), pos, pos_begin, _stream(state.device))
+    _check(rc, "strobe_challenge32")
+    launches["strobe_challenge32"] += 1
+    return out, chal

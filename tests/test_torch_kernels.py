@@ -1,4 +1,4 @@
-"""The port's six kernels (go_curdleproofs_tpu_torch/ops/kernels.py).
+"""The port's kernels (go_curdleproofs_tpu_torch/ops/kernels.py).
 
 On the CPU each wrapper runs its plain version; here those are held against
 the JAX package's Pallas kernels in interpret mode (as tests/
@@ -21,7 +21,7 @@ from go_curdleproofs_tpu.ops.field_backend import Fp as JFp
 from go_curdleproofs_tpu.utils import field_host as fh
 from go_curdleproofs_tpu.utils.field_host import P
 from go_curdleproofs_tpu_torch import convert
-from go_curdleproofs_tpu_torch.ops import curve, fp, kernels
+from go_curdleproofs_tpu_torch.ops import curve, fp, fr, kernels
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -190,8 +190,13 @@ def test_plain_versions_call_no_wrapper(monkeypatch):
     table = curve.build_table(curve.pmap(lambda t: t[None], pv))   # [9,1,4]
     dig = torch.from_numpy(rng.integers(-8, 9, (1, 4, 3), dtype=np.int32))
     sel = curve.pmap(lambda t: t.reshape(2, 2, fp.NWORDS), pv)
-    for name in ("mont_mul", "point_add", "point_double", "pow_fixed",
-                 "windowed_combine", "msm_select_reduce"):
+    s = fr.from_ints([3, 5, 7, 11], CPU)
+    state = torch.arange(200, dtype=torch.uint8)
+    stream = torch.arange(180, dtype=torch.uint8)
+    pbs = torch.tensor([9], dtype=torch.uint8)
+    assert set(kernels.KERNEL_NAMES) == set(kernels.launches) \
+        and len(kernels.KERNEL_NAMES) == 11
+    for name in kernels.KERNEL_NAMES:
         monkeypatch.setattr(kernels, name, boom)
     kernels.mont_mul_plain(x, x)
     kernels.point_add_plain(pv, pv)
@@ -199,6 +204,11 @@ def test_plain_versions_call_no_wrapper(monkeypatch):
     kernels.pow_fixed_plain(x, 0b1011)
     kernels.windowed_combine_plain(sel)
     kernels.msm_select_reduce_plain(table, dig)
+    kernels.point_x16_add_plain(pv, pv)
+    kernels.fr_mont_mul_plain(s, s)
+    kernels.fr_pow_fixed_plain(s, 0b1011)
+    kernels.strobe_absorb_stream_plain(state, stream, 20, pbs, final_pb=3)
+    kernels.strobe_challenge32_plain(state, b"label", 20, 7)
 
 
 def test_wrappers_check_inputs_and_never_fall_back():
@@ -230,6 +240,104 @@ def test_wrappers_check_inputs_and_never_fall_back():
     meta = torch.empty((4, fp.NWORDS), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError):
         kernels.pow_fixed(meta, 3)
+
+
+def test_point_x16_add_plain_matches_pallas_kernel():
+    """B4 against the fused Pallas kernel (interpret) and the oracle on the
+    cases of tests/test_rns_kernels.py:94-122: infinity in either operand,
+    sel equal to 16 * acc (the add is a doubling), the inverse pair."""
+    rng = np.random.default_rng(49)
+    m = 8
+    pts, qts = _rand_points(rng, m), _rand_points(rng, m)
+    pts[0] = None
+    qts[1] = None
+    pts[2] = qts[2] = None
+    qts[3] = fh.g1_mul(pts[3], 16)
+    qts[4] = fh.g1_neg(fh.g1_mul(pts[4], 16))
+    qts[5] = pts[5]
+    jp, jq = jcurve.from_affine_host(pts), jcurve.from_affine_host(qts)
+    pv = curve.from_affine_host(pts, device=CPU)
+    qv = curve.from_affine_host(qts, device=CPU)
+    got = curve.to_affine_host(kernels.point_x16_add(pv, qv))
+    assert got == jcurve.to_affine_host(
+        rns_kernels.point_x16_add(jp, jq, interpret=True))
+    assert got == [fh.g1_add(fh.g1_mul(p, 16) if p else None, q)
+                   for p, q in zip(pts, qts)]
+    assert got[4] is None
+    # curve.x16_add is this wrapper; the result never aliases an input
+    out = curve.x16_add(pv, qv)
+    assert all(torch.equal(u, v) for u, v in
+               zip(out, kernels.point_x16_add_plain(pv, qv)))
+    assert all(o.data_ptr() != i.data_ptr() for o in out for i in (*pv, *qv))
+
+
+def test_scalar_mul_steps_equals_scalar_mul_device_and_oracle():
+    """The window loop on B4 and the one-launch form on B5 give the same
+    points, with a zero scalar, r - 1 and an infinity among them."""
+    rng = np.random.default_rng(50)
+    pts = _rand_points(rng, 4)
+    pts[2] = None
+    sc = [0, fh.R - 1] + [int.from_bytes(rng.bytes(32), "little") % fh.R
+                          for _ in range(2)]
+    pv = curve.from_affine_host(pts, device=CPU)
+    dig = torch.from_numpy(curve.scalars_to_digits(sc))
+    steps = curve.to_affine_host(curve.scalar_mul_steps(pv, dig))
+    assert steps == curve.to_affine_host(curve.scalar_mul_device(pv, dig))
+    assert steps == [fh.g1_mul(p, s) for p, s in zip(pts, sc)]
+
+
+def test_new_wrappers_check_inputs_and_never_fall_back():
+    x = fp.from_ints([1, 2, 3], CPU)
+    pv = curve.PointVec(x, x, x)
+    s = fr.from_ints([1, 2, 3], CPU)
+    with pytest.raises(ValueError):                         # shapes differ
+        kernels.point_x16_add(pv, curve.pmap(lambda t: t[:2], pv))
+    with pytest.raises(ValueError):                         # a view
+        kernels.point_x16_add(pv, curve.pmap(
+            lambda t: torch.cat([t, t])[0::2], pv))
+    with pytest.raises(TypeError):
+        kernels.point_x16_add(pv, curve.pmap(lambda t: t.to(torch.int64),
+                                             pv))
+    with pytest.raises(ValueError):                         # 12-word elements
+        kernels.fr_mont_mul(x, x)
+    with pytest.raises(ValueError):
+        kernels.fr_mont_mul(s, s[:2])
+    with pytest.raises(ValueError):
+        kernels.fr_mont_mul(torch.cat([s, s])[0::2], s)
+    with pytest.raises(TypeError):
+        kernels.fr_mont_mul(s.to(torch.int64), s.to(torch.int64))
+    with pytest.raises(ValueError):
+        kernels.fr_pow_fixed(s, 0)
+    with pytest.raises(ValueError):
+        kernels.fr_pow_fixed(s, 1 << 256)
+    with pytest.raises(ValueError):
+        kernels.fr_pow_fixed(x, 3)
+    with pytest.raises(TypeError):
+        kernels.fr_pow_fixed(s.to(torch.int64), 3)
+
+    state = torch.zeros(200, dtype=torch.uint8)
+    stream = torch.zeros(40, dtype=torch.uint8)
+    none = torch.zeros(0, dtype=torch.uint8)
+    with pytest.raises(ValueError):                         # [199] state
+        kernels.strobe_absorb_stream(state[:199], stream, 0, none)
+    with pytest.raises(ValueError):                         # position 166
+        kernels.strobe_absorb_stream(state, stream, 166, none)
+    with pytest.raises(ValueError):                         # one crossing
+        kernels.strobe_absorb_stream(state, stream, 150, none)
+    with pytest.raises(TypeError):
+        kernels.strobe_absorb_stream(state.to(torch.int32), stream, 0, none)
+    with pytest.raises(ValueError):
+        kernels.strobe_absorb_stream(state, torch.zeros(80, dtype=torch.uint8)
+                                     [0::2], 0, none)
+    with pytest.raises(ValueError):
+        kernels.strobe_challenge32(state, b"l" * 33, 0, 0)
+    with pytest.raises(ValueError):
+        kernels.strobe_challenge32(state, b"label", 0, 167)
+    with pytest.raises(TypeError):
+        kernels.strobe_challenge32(state.to(torch.int32), b"label", 0, 0)
+    meta = torch.empty((4, fr.NWORDS), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        kernels.fr_pow_fixed(meta, 3)
 
 
 def test_plain_route_counts_no_launch():
@@ -319,3 +427,56 @@ def test_cuda_pointwise_kernels_match_plain(cuda_device):
     assert kernels.launches["point_double"] == 1
     with pytest.raises(ValueError):
         kernels.mont_mul(torch.cat([a, a])[0::2], a)
+
+
+@pytest.mark.cuda
+def test_cuda_device_prover_kernels_match_plain(cuda_device):
+    """B4, B8, the Fr multiply and the two transcript kernels on the card
+    against their plain versions, exact, with the edge cases and the
+    launch counts."""
+    rng = np.random.default_rng(51)
+    dev = cuda_device
+    xs = [0, 1, fh.R - 1] + [int.from_bytes(rng.bytes(32), "little") % fh.R
+                             for _ in range(125)]
+    a, b = fr.from_ints(xs, dev), fr.from_ints(xs[::-1], dev)
+    kernels.reset_launches()
+    assert torch.equal(kernels.fr_mont_mul(a, b),
+                       kernels.fr_mont_mul_plain(a, b))
+    assert torch.equal(kernels.fr_mont_mul(a, b[5]),
+                       kernels.fr_mont_mul_plain(a, b[5]))
+    assert kernels.launches["fr_mont_mul"] == 2
+    a8 = a[:8].contiguous()
+    assert torch.equal(kernels.fr_pow_fixed(a8, fh.R - 2),
+                       kernels.fr_pow_fixed_plain(a8, fh.R - 2))
+    assert kernels.launches["fr_pow_fixed"] == 1
+
+    pts, qts = _rand_points(rng, 24, n_inf=2), _rand_points(rng, 24, n_inf=2)
+    qts[3] = fh.g1_mul(pts[3], 16) if pts[3] else None
+    qts[4] = fh.g1_neg(fh.g1_mul(pts[4], 16)) if pts[4] else None
+    pv = curve.from_affine_host(pts, device=dev)
+    qv = curve.from_affine_host(qts, device=dev)
+    got = kernels.point_x16_add(pv, qv)
+    assert all(torch.equal(u, v) for u, v in
+               zip(got, kernels.point_x16_add_plain(pv, qv)))
+    assert kernels.launches["point_x16_add"] == 1
+
+    state = torch.from_numpy(rng.integers(0, 256, 200, dtype=np.uint8)).to(dev)
+    for n, pos in ((1000, 17), (6, 160), (166 * 3, 0), (40, 3)):
+        stream = torch.from_numpy(
+            rng.integers(0, 256, n, dtype=np.uint8)).to(dev)
+        pbs = torch.from_numpy(rng.integers(
+            0, 166, (pos + n) // 166, dtype=np.uint8)).to(dev)
+        for final_pb in (None, 7):
+            assert torch.equal(
+                kernels.strobe_absorb_stream(state, stream, pos, pbs,
+                                             final_pb),
+                kernels.strobe_absorb_stream_plain(state, stream, pos, pbs,
+                                                   final_pb))
+    for pos, pb in ((0, 0), (41, 12), (150, 3), (165, 160)):
+        g_st, g_ch = kernels.strobe_challenge32(state, b"ipa_gamma", pos, pb)
+        w_st, w_ch = kernels.strobe_challenge32_plain(state, b"ipa_gamma",
+                                                      pos, pb)
+        assert torch.equal(g_st, w_st) and torch.equal(g_ch, w_ch)
+    assert kernels.launches["strobe_challenge32"] == 4
+    with pytest.raises(ValueError):
+        kernels.fr_mont_mul(torch.cat([a, a])[0::2], a)
