@@ -11,9 +11,12 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
      per source, started together) and the host C library with cc;
   3. each of the eleven kernels against its plain torch version on the card,
      at the shapes the verifier and the provers give it, compared exactly by
-     value (integers, tolerance 0), with timings and roofline bounds; the
-     two forms of a per-point scalar multiplication (the window loop on
-     point_x16_add, the one-launch windowed_combine) side by side;
+     value (integers, tolerance 0), with timings and roofline bounds;
+     windowed_combine and msm_select_reduce also at ragged shapes, at a
+     forced split, and at inputs that hit the corners of the complete
+     point formulas, each time beside the time of the previous design;
+     the two forms of a per-point scalar multiplication (the window loop
+     on point_x16_add, the one-launch windowed_combine) side by side;
   4. verifier path: ELL=124 CRS, both proofs of
      tests/fixture_whisk_ell124.json verified with launch counts, tampered
      proofs rejected, the golden ell=12 Whisk proof and tracker proof
@@ -79,6 +82,9 @@ FIXTURE = os.path.join(ROOT, "tests", "fixture_whisk_ell124.json")
 GOLDEN = os.path.join(ROOT, "tests", "golden_vectors.json")
 SMS_FLIP_BYTE = 4520      # inside the same-multiscalar scalar x (4504-4535)
 PROVE_SEED = 0x5EED       # Rand seed of the ELL=124 prove
+# (windowed_combine, msm_select_reduce) wrapper calls of one run at ELL=124:
+# a redesign of the kernels must leave them as they are
+MSM_LAUNCHES = {"verify": (2, 2), "prove": (23, 21), "device prove": (23, 21)}
 
 # The card's peaks for the roofline bound (NVIDIA H100 SXM data sheet and
 # Hopper white paper): 3.35e12 bytes/s of HBM3; 67e12 float32 FLOP/s outside
@@ -95,10 +101,30 @@ FR_MADS_PER_PRODUCT = 2 * 8 * 8       # 8-word product and reduction
 # two 32-bit integer operations each
 KECCAK_INT32_OPS = 24 * 150 * 2
 
+# Kernel ms of the previous design of the two MSM kernels (one thread a row
+# in windowed_combine, one block of 128 threads a (window, job) in
+# msm_select_reduce; commit f0bd51a), from this script at that commit on an
+# NVIDIA H100 80GB HBM3, 700.00 W: printed beside the new times.
+PREVIOUS_DESIGN_MS = {
+    ("windowed_combine", (33, 1)): 5.5717,
+    ("windowed_combine", (33, 6)): 5.5730,
+    ("windowed_combine", (33, 2048)): 5.8333,
+    ("msm_select_reduce", (9, 6, 256)): 0.4743,
+    ("msm_select_reduce", (9, 1, 256)): 0.4664,
+    ("msm_select_reduce", (9, 1, 2048)): 1.2082,
+}
+
 
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def check_msm_launches(counts: dict, run: str) -> None:
+    got = (counts["windowed_combine"], counts["msm_select_reduce"])
+    check(got == MSM_LAUNCHES[run],
+          f"(windowed_combine, msm_select_reduce) launches per {run}: "
+          f"{got}, expected {MSM_LAUNCHES[run]}")
 
 
 def cuda_ms(fn, reps: int = 3) -> float:
@@ -222,10 +248,12 @@ def phase_kernels(dev: torch.device) -> dict:
     W = curve.NUM_WINDOWS
     print("kernel vs plain: exact integer results, tolerance 0")
 
-    def report(name, shape, err, ms, plain_ms, bnd, keep=True):
-        print(f"{name} {shape}: exact; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.2f} ms, bound {bnd['bound_ms']:.6f} ms by "
-              f"{bnd['bound_by']}")
+    def report(name, shape, err, ms, plain_ms, bnd, keep=True, what=""):
+        prev = None if what else PREVIOUS_DESIGN_MS.get((name, tuple(shape)))
+        print(f"{name} {shape}{what}: exact; kernel {ms:.4f} ms"
+              + (f" (previous design {prev:.4f} ms)" if prev else "")
+              + f", plain {plain_ms:.2f} ms, bound {bnd['bound_ms']:.6f} ms "
+              f"by {bnd['bound_by']}")
         if keep:
             res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
 
@@ -330,30 +358,41 @@ def phase_kernels(dev: torch.device) -> dict:
         # a lane whose digit is zero selects infinity and needs no add
         return bound(n_bytes, int((dig != 0).sum()) * PRODUCTS_ADD)
 
-    def check_msm(tab, dig, shape, keep):
-        got = kernels.msm_select_reduce(tab, dig)
+    def check_msm(tab, dig, keep, split=None, what=""):
+        """Two launches in a row (with a split the second finds the scratch
+        and the grid as the first left them), then the plain version."""
+        shape = [9, *dig.shape[:2]]
+        got = kernels.msm_select_reduce(tab, dig, _split=split)
+        again = kernels.msm_select_reduce(tab, dig, _split=split)
+        torch.cuda.synchronize()
         want = kernels.msm_select_reduce_plain(tab, dig)
-        err = _affine_err(curve.to_affine_host(got),
-                          curve.to_affine_host(want))
-        check(err == 0, f"msm_select_reduce {shape}")
+        got_aff = curve.to_affine_host(got)
+        err = _affine_err(got_aff, curve.to_affine_host(want))
+        check(err == 0, f"msm_select_reduce {shape}{what}")
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"msm_select_reduce {shape}{what}: a second launch repeats")
         report("msm_select_reduce", shape, err,
-               kernel_ms(lambda: kernels.msm_select_reduce(tab, dig), 5),
+               kernel_ms(lambda: kernels.msm_select_reduce(tab, dig,
+                                                           _split=split)),
                cuda_ms(lambda: kernels.msm_select_reduce_plain(tab, dig), 1),
-               msm_bound(tab, dig), keep=keep)
-        return got
+               msm_bound(tab, dig), keep=keep, what=what)
+        return got, got_aff
 
-    def check_combine(sel, keep):
+    def check_combine(sel, keep, what=""):
         shape = list(sel.x.shape[:2])
         got = kernels.windowed_combine(sel)
+        torch.cuda.synchronize()
         want = kernels.windowed_combine_plain(sel)
         err = _point_err(got, want)
-        check(err == 0, f"windowed_combine {shape}")
+        check(err == 0, f"windowed_combine {shape}{what}")
         n_win, rows = shape
         report("windowed_combine", shape, err,
-               kernel_ms(lambda: kernels.windowed_combine(sel), 5),
+               kernel_ms(lambda: kernels.windowed_combine(sel), 10),
                cuda_ms(lambda: kernels.windowed_combine_plain(sel), 1),
                bound(3 * (n_win + 1) * rows * ELEM_BYTES, rows * n_win
-                     * (4 * PRODUCTS_DOUBLE + PRODUCTS_ADD)), keep=keep)
+                     * (4 * PRODUCTS_DOUBLE + PRODUCTS_ADD)), keep=keep,
+               what=what)
+        return got
 
     # B6 then B5 as a same-multiscalar round gives them: 6 terms over the
     # three-row [G, T, U] table [9, 3, 256]
@@ -362,9 +401,21 @@ def phase_kernels(dev: torch.device) -> dict:
     tab6 = curve.pmap(lambda t: t.index_select(1, torch.tensor(
         [0, 1, 2, 0, 1, 2], device=dev)).contiguous(), gtu.table())
     dig6 = _rand_digits((6, 256, W), rng).to(dev)
-    sums6 = check_msm(tab6, dig6, [9, 6, 256], keep=False)
+    sums6, _ = check_msm(tab6, dig6, keep=False)
     check_combine(curve.pmap(lambda t: t.transpose(0, 1).contiguous(), sums6),
                   keep=False)
+
+    # B6 off the even shapes: 200 lanes of three jobs over two and over
+    # three blocks each (no multiple of 3, of a block's 32 groups or of a
+    # group of 8), with one job whose digits are all zero: every window sum
+    # of it is infinity
+    tab3 = curve.pmap(lambda t: t[:, :3, :200].contiguous(), gtu.table())
+    dig3 = _rand_digits((3, 200, W), rng)
+    dig3[1] = 0
+    for split in (2, 3):
+        _, aff3 = check_msm(tab3, dig3.to(dev), keep=False, split=split,
+                            what=f" split {split}, one job all zero")
+        check(aff3[W:2 * W] == [None] * W, "all-zero job sums to infinity")
 
     # B6 as the verifier gives it: static CRS row (n2 = 256), dynamic row
     # (n2 = 2048) of the extended table [9, 1, 2048]
@@ -375,16 +426,39 @@ def phase_kernels(dev: torch.device) -> dict:
         tab = curve.pmap(lambda t: t[:, :, :n2].contiguous(), table)
         dig = _rand_digits((1, n2, W), rng)
         dig[0, :17, 0] = torch.arange(-8, 9, dtype=torch.int32)
-        sums[n2] = check_msm(tab, dig.to(dev), [9, 1, n2], keep=True)
+        sums[n2], _ = check_msm(tab, dig.to(dev), keep=True)
 
-    # B5: final MSM Horner [33, 1], decode's subgroup Horner [33, 2048]
+    # B5: final MSM Horner [33, 1], a ragged [33, 7], the decode's subgroup
+    # Horner [33, 2048]
     dig = _rand_digits((2048, W), rng).to(dev)
     sel_big = curve.pmap(lambda t: t.contiguous(), curve.table_select_windows(
         curve.pmap(lambda t: t[:, 0], table), dig))            # [33, 2048]
     sel_one = curve.pmap(lambda t: t.transpose(0, 1).contiguous(),
                          sums[2048])                            # [33, 1]
     check_combine(sel_one, keep=False)
+    check_combine(curve.pmap(lambda t: t[:, :7].contiguous(), sel_big),
+                  keep=False)
     check_combine(sel_big, keep=True)
+
+    # B5 at the corners of the complete formulas, one row each: infinity in
+    # every window; an accumulator P that meets sel = 16 P after its four
+    # doublings (the add is a doubling); the same with -16 P (the sum is
+    # infinity, and the row goes on); points only in the last window
+    p, q = pts[7], pts[8]
+    p16 = fh.g1_mul(p, 16)
+    cols = [[None] * W for _ in range(4)]
+    cols[1][3], cols[1][4] = p, p16
+    cols[2][3], cols[2][4], cols[2][9] = p, fh.g1_neg(p16), q
+    cols[3][W - 1] = q
+    sel_c = curve.pmap(
+        lambda t: t.reshape(W, len(cols), fp.NWORDS).contiguous(),
+        curve.from_affine_host([c[w] for w in range(W) for c in cols],
+                               device=dev))
+    got = curve.to_affine_host(check_combine(sel_c, keep=False,
+                                             what=" corner rows"))
+    check(got == [None, fh.g1_mul(p, 32 * 16 ** (W - 5)),
+                  fh.g1_mul(q, 16 ** (W - 10)), q],
+          "windowed_combine corner rows against the host's group law")
     return res
 
 
@@ -627,6 +701,7 @@ def phase_verifier(dev: torch.device, card: str):
     warm_ms = cuda_ms(lambda: check(verify(*insts[0]), "warm verify"))
     kernels.reset_launches()
     check(verify(*insts[0]), "counted verify")
+    check_msm_launches(kernels.launches, "verify")
     print(f"verify ELL=124: cold {cold_ms:.1f} ms, warm {warm_ms:.1f} ms "
           f"(median of 3) on {card}; launches per verify "
           f"{dict(kernels.launches)}")
@@ -703,6 +778,7 @@ def phase_prover(dev: torch.device, card: str, crs, insts, gv) -> dict:
     cold_ms = (time.perf_counter() - t0) * 1e3
     counts = dict(kernels.launches)
     check(len(proof) == whisk.WHISK_SHUFFLE_PROOF_SIZE, "proof size 4576")
+    check_msm_launches(counts, "prove")
     for name in EARLIER_KERNELS:
         check(counts[name] > 0, f"{name} launched on the prover path")
 
@@ -811,6 +887,7 @@ def phase_device_prover(dev: torch.device, card: str, crs, insts, gv,
               "ELL=124 prover=device proof byte-identical to prover=host")
         for name, n in counts.items():
             check(n > 0, f"{name} launched by the device prove")
+        check_msm_launches(counts, "device prove")
         check(counts["fr_pow_fixed"] == 17,
               f"17 Fr inversions at N=128, saw {counts['fr_pow_fixed']}")
         check(whisk.is_valid_whisk_shuffle_proof(

@@ -12,7 +12,10 @@ windows, 9-entry multiples tables with free negation. Every point
 operation goes through a kernel wrapper of ops/kernels.py: `add` and
 `double` (table builds, the GLV halves' add, the add of static and dynamic
 window sums) through `point_add` / `point_double`, the MSM wide phase
-through `msm_select_reduce`, the Horner tail through `windowed_combine`.
+through `msm_select_reduce` (one wrapper call; wide rows are split over
+blocks and finished by a second small launch inside it), the Horner tail
+through `windowed_combine` (one launch, its time the same from 1 row to
+2048). In both a group of 8 lanes shares each point operation.
 
 A per-point scalar multiplication has two forms: `scalar_mul_device` (all
 windows selected, one `windowed_combine` launch) and `scalar_mul_steps`

@@ -3,8 +3,9 @@
 Each kernel (CUDA C++ for sm_90a; ops/csrc/pointwise.cu holds mont_mul,
 point_add, point_double, point_x16_add, fr_mont_mul and fr_pow_fixed,
 ops/csrc/kernels.cu holds pow_fixed, windowed_combine and
-msm_select_reduce, ops/csrc/transcript.cu holds strobe_absorb_stream and
-strobe_challenge32) has
+msm_select_reduce, the last two on the cooperative point operations of
+ops/csrc/point_coop.cuh, ops/csrc/transcript.cu holds strobe_absorb_stream
+and strobe_challenge32) has
 
   * a wrapper that checks its tensors and, for CUDA tensors, launches the
     kernel on PyTorch's current stream, raising if the launch is refused;
@@ -41,7 +42,7 @@ from . import curve, fp, fr, keccak_dev
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _CU_SOURCES = ("kernels.cu", "pointwise.cu", "transcript.cu")  # a library each
-_SOURCES = ("fp.cuh", "fr.cuh") + _CU_SOURCES
+_SOURCES = ("fp.cuh", "fr.cuh", "point_coop.cuh") + _CU_SOURCES
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -153,7 +154,7 @@ def _load() -> SimpleNamespace:
             fns.pow_fixed.argtypes = [
                 vp, vp, i32, ctypes.POINTER(ctypes.c_uint32), i32, vp]
             fns.windowed_combine.argtypes = [vp] * 6 + [i32, i32, vp]
-            fns.msm_select_reduce.argtypes = [vp] * 7 + [i32] * 3 + [vp]
+            fns.msm_select_reduce.argtypes = [vp] * 10 + [i32] * 4 + [vp]
             fns.mont_mul.argtypes = [vp, vp, vp, i64, i32, i32, vp]
             fns.point_add.argtypes = [vp] * 9 + [i64, vp]
             fns.point_double.argtypes = [vp] * 6 + [i64, vp]
@@ -399,11 +400,30 @@ def msm_select_reduce_plain(table: curve.PointVec,
                                     add=point_add_plain)
 
 
-def msm_select_reduce(table: curve.PointVec,
-                      digits: torch.Tensor) -> curve.PointVec:
+# How the lanes of one (window, job) are split over blocks. One lane's
+# product keeps the integer pipe of its SM quarter more than half busy, so
+# a second block on an SM slows both: measured on an H100, the kernel is
+# fastest with as many blocks as fit one to an SM (132), down to 64 lanes
+# (two per group) a block; the finishing launch sums at most 16 partial sums.
+_SM_COUNT = 132
+_SPLIT_MIN_LANES = 64
+_SPLIT_MAX = 16
+
+
+def _msm_split(m: int, n2: int, n_windows: int) -> int:
+    """Blocks that share the lanes of one (window, job): as many as keep
+    n_windows * m * split within one block an SM, while a block keeps at
+    least _SPLIT_MIN_LANES lanes. 1 from three jobs on at 33 windows."""
+    fill = _SM_COUNT // max(1, n_windows * m)
+    return max(1, min(fill, n2 // _SPLIT_MIN_LANES, _SPLIT_MAX))
+
+
+def msm_select_reduce(table: curve.PointVec, digits: torch.Tensor,
+                      _split: Optional[int] = None) -> curve.PointVec:
     """table: [9, m, n2, 12] per coordinate (entry d = d*P_l); digits:
     [m, n2, W] int32 signed window digits in [-8, 8], MSB window first ->
-    window sums [m, W, 12] per coordinate."""
+    window sums [m, W, 12] per coordinate. `_split` (tests only) overrides
+    the number of blocks that share one job's lanes."""
     for t in table:
         _check_elems(t, 4, "msm_select_reduce")
         if t.shape != table.x.shape:
@@ -415,18 +435,28 @@ def msm_select_reduce(table: curve.PointVec,
     if digits.ndim != 3 or tuple(digits.shape[:2]) != (m, n2):
         raise ValueError(f"msm_select_reduce: digits {tuple(digits.shape)} "
                          f"do not match table [{m}, {n2}]")
+    n_win = digits.shape[2]
+    split = _msm_split(m, n2, n_win) if _split is None else _split
+    if not 1 <= split <= _SPLIT_MAX:
+        raise ValueError(f"msm_select_reduce: split {split} outside "
+                         f"[1, {_SPLIT_MAX}]")
     if _route(*table, digits) == "cpu":
         return msm_select_reduce_plain(table, digits)
-    n_win = digits.shape[2]
     out = curve.PointVec(*(torch.empty((m, n_win, fp.NWORDS),
                                        dtype=torch.int32,
                                        device=digits.device)
                            for _ in range(3)))
+    # partial sums [3, split, m, W, 12] between the two launches of a split
+    scratch = None if split == 1 else torch.empty(
+        (3, split, m, n_win, fp.NWORDS), dtype=torch.int32,
+        device=digits.device)
+    part = (None,) * 3 if scratch is None else tuple(
+        t.data_ptr() for t in scratch.unbind(0))
     lib = _load()
     with torch.cuda.device(digits.device):
         rc = lib.msm_select_reduce(
             *(t.data_ptr() for t in table), digits.data_ptr(),
-            *(t.data_ptr() for t in out), m, n2, n_win,
+            *(t.data_ptr() for t in out), *part, m, n2, n_win, split,
             _stream(digits.device))
     _check(rc, "msm_select_reduce")
     launches["msm_select_reduce"] += 1
