@@ -15,8 +15,13 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
      windowed_combine and msm_select_reduce also at ragged shapes, at a
      forced split, and at inputs that hit the corners of the complete
      point formulas, each time beside the time of the previous design;
-     the two forms of a per-point scalar multiplication (the window loop
-     on point_x16_add, the one-launch windowed_combine) side by side;
+     the Fp product on 65,536 pairs (every pair of ~45 edge elements, then
+     random ones) and the dedicated square against the product; pow_fixed
+     at awkward exponents, with the lone-warp time of one product and one
+     square read from its chain; both load stages of point_x16_add with
+     every digit on an infinity row and a finite row; the two forms of a
+     per-point scalar multiplication (the window loop on point_x16_add,
+     the one-launch windowed_combine) side by side;
   4. verifier path: ELL=124 CRS, both proofs of
      tests/fixture_whisk_ell124.json verified with launch counts, tampered
      proofs rejected, the golden ell=12 Whisk proof and tracker proof
@@ -33,7 +38,8 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
      to the prover="host" proof from the same seeds, verified, a flipped
      byte rejected; the chain between upload and the one fetch run under
      torch.cuda.set_sync_debug_mode("error"), so any synchronising call in
-     it fails the run; launch counts of every kernel over that prove;
+     it fails the run; launch counts of every kernel over that prove
+     (point_x16_add exactly 363: 11 window loops of 33 launches);
      cold/warm times of both provers side by side.
 
 Prints the kernel summary as one JSON line, then as the last line
@@ -101,18 +107,26 @@ FR_MADS_PER_PRODUCT = 2 * 8 * 8       # 8-word product and reduction
 # two 32-bit integer operations each
 KECCAK_INT32_OPS = 24 * 150 * 2
 
-# Kernel ms of the previous design of the two MSM kernels (one thread a row
-# in windowed_combine, one block of 128 threads a (window, job) in
-# msm_select_reduce; commit f0bd51a), from this script at that commit on an
-# NVIDIA H100 80GB HBM3, 700.00 W: printed beside the new times.
+# Kernel ms of the previous design of a redesigned kernel, from this script
+# at the commit before its redesign on an NVIDIA H100 80GB HBM3, 700.00 W:
+# printed beside the new times. windowed_combine: one thread a row;
+# msm_select_reduce: one block of 128 threads a (window, job) (both commit
+# f0bd51a). pow_fixed: one bit a step on the 64-bit C product;
+# point_x16_add: one thread a point, 44 products deep (both commit c3c7562).
 PREVIOUS_DESIGN_MS = {
-    ("windowed_combine", (33, 1)): 5.5717,
-    ("windowed_combine", (33, 6)): 5.5730,
-    ("windowed_combine", (33, 2048)): 5.8333,
-    ("msm_select_reduce", (9, 6, 256)): 0.4743,
-    ("msm_select_reduce", (9, 1, 256)): 0.4664,
-    ("msm_select_reduce", (9, 1, 2048)): 1.2082,
+    "windowed_combine [33, 1]": 5.5717,
+    "windowed_combine [33, 6]": 5.5730,
+    "windowed_combine [33, 2048]": 5.8333,
+    "msm_select_reduce [9, 6, 256]": 0.4743,
+    "msm_select_reduce [9, 1, 256]": 0.4664,
+    "msm_select_reduce [9, 1, 2048]": 1.2082,
+    "pow_fixed [1024] sqrt exponent": 0.9242,
+    "pow_fixed [256] inverse exponent": 0.9313,
+    "point_x16_add [24]": 0.1675,
+    "point_x16_add [2]": 0.1669,
 }
+MADS_PER_SQUARE = 12 * 13 // 2 + 12 * 12   # 78 partial products, reduction
+X16_LAUNCHES_DEVICE_PROVE = 363            # 11 window loops x 33 windows
 
 
 def check(cond: bool, what: str) -> None:
@@ -236,6 +250,35 @@ def _rand_digits(shape, rng: random.Random) -> torch.Tensor:
                         dtype=torch.int32).reshape(shape)
 
 
+def ladder_steps(e: int):
+    """(squarings, products) of pow_fixed's 4-bit window ladder for e."""
+    nibbles = [(e >> (4 * i)) & 15 for i in range((e.bit_length() + 3) // 4)]
+    return (7 + 4 * (len(nibbles) - 1),
+            7 + sum(d != 0 for d in nibbles[:-1]))
+
+
+def edge_elements(rng: random.Random):
+    """Field elements on which a lost carry would show: the ends of the
+    range, R and R^2, powers of two and their predecessors around word
+    boundaries, and per word position one element with that word all
+    zeros and one with it all ones."""
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
+
+    p = fh.P
+    vals = [0, 1, 2, p - 1, p - 2, (p + 1) // 2, (1 << 384) % p,
+            (1 << 768) % p, (1 << 380) - 1]
+    for k in (31, 32, 33, 63, 64, 65, 191, 192, 351, 352, 380):
+        vals += [1 << k, (1 << k) - 1]
+    for j in range(12):
+        for fill in (0, 0xFFFFFFFF):
+            v = rng.randrange(p) & ~(0xFFFFFFFF << (32 * j))
+            v |= fill << (32 * j)
+            if v >= p:      # all ones in the top word: the largest below
+                v = (((p >> 352) - 1) << 352) | ((1 << 352) - 1)
+            vals.append(v)
+    return vals
+
+
 def phase_kernels(dev: torch.device) -> dict:
     """Each kernel vs its plain version on the card, at the main paths'
     shapes. Returns {name: {"max_abs_err", "ms", "plain_ms", "bound_ms",
@@ -249,7 +292,7 @@ def phase_kernels(dev: torch.device) -> dict:
     print("kernel vs plain: exact integer results, tolerance 0")
 
     def report(name, shape, err, ms, plain_ms, bnd, keep=True, what=""):
-        prev = None if what else PREVIOUS_DESIGN_MS.get((name, tuple(shape)))
+        prev = None if what else PREVIOUS_DESIGN_MS.get(f"{name} {shape}")
         print(f"{name} {shape}{what}: exact; kernel {ms:.4f} ms"
               + (f" (previous design {prev:.4f} ms)" if prev else "")
               + f", plain {plain_ms:.2f} ms, bound {bnd['bound_ms']:.6f} ms "
@@ -282,6 +325,29 @@ def phase_kernels(dev: torch.device) -> dict:
            kernel_ms(lambda: kernels.mont_mul(plane, beta)),
            cuda_ms(lambda: kernels.mont_mul_plain(plane, beta)),
            bound((2 * n + 1) * ELEM_BYTES, n))
+
+    # the product's carry chains: every pair of the edge elements, word for
+    # word against the plain version and Python ints, then random pairs up
+    # to 65,536; the dedicated square (pow_fixed with exponent 2) against
+    # the product on the same elements
+    edge = edge_elements(rng)
+    xs = [u for u in edge for _ in edge]
+    ys = [v for _ in edge for v in edge]
+    n_edge = len(xs)
+    xs += [rng.randrange(fh.P) for _ in range(65536 - n_edge)]
+    ys += [rng.randrange(fh.P) for _ in range(65536 - n_edge)]
+    a, b = fp.from_ints(xs, dev), fp.from_ints(ys, dev)
+    got = kernels.mont_mul(a, b)
+    check(torch.equal(got, kernels.mont_mul_plain(a, b)),
+          "mont_mul stress: 65,536 pairs against the plain version")
+    check(fp.to_ints(got[:n_edge]) == [x * y % fh.P for x, y in
+                                       zip(xs[:n_edge], ys[:n_edge])],
+          "mont_mul stress: the edge grid against Python ints")
+    check(torch.equal(kernels.pow_fixed(a, 2), kernels.mont_mul(a, a)),
+          "pow_fixed(x, 2) == mont_mul(x, x): the square against the product")
+    print(f"mont_mul stress: {len(edge)} edge elements, every pair "
+          f"({n_edge}), and {65536 - n_edge} random pairs: exact; "
+          f"pow_fixed(x, 2) == mont_mul(x, x) on all 65,536")
 
     # a 1024-point base row; its first lanes hold the edge cases
     pts = _curve_points(1024, rng)
@@ -335,22 +401,47 @@ def phase_kernels(dev: torch.device) -> dict:
            cuda_ms(lambda: kernels.point_add_plain(p4, q4)),
            bound(9 * 4096 * ELEM_BYTES, 4096 * PRODUCTS_ADD))
 
-    # B7: the prover's inverse ladder ([256], exponent p - 2, with 0) and
-    # the decode's sqrt ladder over the 1024-lane pool
-    for n, e, what in ((256, fh.P - 2, "inverse"),
-                       (1024, (fh.P + 1) // 4, "sqrt")):
-        vals = [0, 1, fh.P - 1] + [rng.randrange(fh.P) for _ in range(n - 3)]
+    # B7: the decode's sqrt ladder over the 1024-lane pool and the provers'
+    # inverse ladders ([256], [24], [1]; exponent p - 2, with 0)
+    for n, e, what in ((1024, (fh.P + 1) // 4, "sqrt"),
+                       (256, fh.P - 2, "inverse"), (24, fh.P - 2, "inverse"),
+                       (1, fh.P - 2, "inverse")):
+        vals = ([rng.randrange(fh.P) for _ in range(n)]
+                + [0, 1, fh.P - 1])[-n:]
         x = fp.from_ints(vals, dev)
         got, want = kernels.pow_fixed(x, e), kernels.pow_fixed_plain(x, e)
         gi, wi = fp.to_ints(got), fp.to_ints(want)
         err = max(abs(u - v) for u, v in zip(gi, wi))
         check(err == 0 and gi == [pow(v, e, fh.P) for v in vals],
-              f"pow_fixed {what}")
-        products = n * (e.bit_length() - 1 + bin(e).count("1") - 1)
+              f"pow_fixed [{n}] {what}")
+        n_sqr, n_mul = ladder_steps(e)
         report("pow_fixed", f"[{n}] {what} exponent", err,
                kernel_ms(lambda: kernels.pow_fixed(x, e), 5),
                cuda_ms(lambda: kernels.pow_fixed_plain(x, e), 1),
-               bound(2 * n * ELEM_BYTES, products))
+               bound(2 * n * ELEM_BYTES, n * (
+                   n_mul + n_sqr * MADS_PER_SQUARE / MADS_PER_PRODUCT)),
+               keep=n == 1024)
+    # small and awkward exponents: below 16, zero nibbles, every bit length
+    # mod 4, all ones
+    vals = [0, 1, fh.P - 1] + [rng.randrange(fh.P) for _ in range(29)]
+    x = fp.from_ints(vals, dev)
+    for e in (1, 2, 3, 15, 16, 17, (1 << 384) - 1, 0x9000A00000B0000C0D,
+              0x1F3, 0x2F03, 0x7000F, 1 << 380):
+        got = kernels.pow_fixed(x, e)
+        check(torch.equal(got, kernels.pow_fixed_plain(x, e))
+              and fp.to_ints(got) == [pow(v, e, fh.P) for v in vals],
+              f"pow_fixed exponent {e:#x}")
+    print("pow_fixed at 12 small and awkward exponents: exact")
+    # one product and one square of a lone warp, from the chain: 2^380 is
+    # 387 squarings and 7 products, 2^384 - 1 adds 95 products, 1 has the
+    # table's 7 and 7 only
+    one = x[3:4].contiguous()
+    t_1, t_sq, t_all = (kernel_ms(lambda: kernels.pow_fixed(one, e), 10)
+                        for e in (1, 1 << 380, (1 << 384) - 1))
+    print(f"lone warp, from pow_fixed [1] at exponents 1 / 2^380 / 2^384-1 "
+          f"({t_1:.4f} / {t_sq:.4f} / {t_all:.4f} ms): one product "
+          f"{(t_all - t_sq) / 95 * 1e3:.3f} us, one square "
+          f"{(t_sq - t_1) / 380 * 1e3:.3f} us")
 
     def msm_bound(tab, dig):
         m, n2 = dig.shape[:2]
@@ -495,10 +586,12 @@ def phase_kernels_device_prover(dev: torch.device) -> dict:
     rng = random.Random(2025)
     res = {}
 
-    def report(name, shape, ms, plain_ms, bnd, keep):
-        print(f"{name} {shape}: exact; kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.2f} ms, bound {bnd['bound_ms']:.6f} ms by "
-              f"{bnd['bound_by']}")
+    def report(name, shape, ms, plain_ms, bnd, keep, what=""):
+        prev = None if what else PREVIOUS_DESIGN_MS.get(f"{name} {shape}")
+        print(f"{name} {shape}{what}: exact; kernel {ms:.4f} ms"
+              + (f" (previous design {prev:.4f} ms)" if prev else "")
+              + f", plain {plain_ms:.2f} ms, bound {bnd['bound_ms']:.6f} ms "
+              f"by {bnd['bound_by']}")
         if keep:
             res[name] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, **bnd)
 
@@ -540,13 +633,15 @@ def phase_kernels_device_prover(dev: torch.device) -> dict:
            bound((2 * 128 + 1) * FR_BYTES, 128, FR_MADS_PER_PRODUCT),
            keep=False)
 
-    # B4 at the window loop's batches: 2n lanes of 1, 2 and 12 points
+    # B4 at the window loop's batches: 2n lanes of 1, 2 and 12 points, both
+    # load stages. Operand given: the corners of the complete formulas.
     pts, qts = _curve_points(24, rng), _curve_points(24, rng)
     pts[0] = None                               # 16 * infinity + Q
     qts[1] = None                               # 16 * P + infinity
     pts[2] = qts[2] = None
     qts[3] = fh.g1_mul(pts[3], 16)              # the add is a doubling
     qts[4] = fh.g1_neg(fh.g1_mul(pts[4], 16))   # the add cancels
+    step_ops = 4 * PRODUCTS_DOUBLE + PRODUCTS_ADD
     for n in (2, 4, 24):
         pv = curve.from_affine_host(pts[-n:] if n < 24 else pts, device=dev)
         qv = curve.from_affine_host(qts[-n:] if n < 24 else qts, device=dev)
@@ -560,8 +655,51 @@ def phase_kernels_device_prover(dev: torch.device) -> dict:
         report("point_x16_add", [n],
                kernel_ms(lambda: kernels.point_x16_add(pv, qv)),
                cuda_ms(lambda: kernels.point_x16_add_plain(pv, qv)),
-               bound(9 * n * ELEM_BYTES,
-                     n * (4 * PRODUCTS_DOUBLE + PRODUCTS_ADD)), keep=n == 24)
+               bound(9 * n * ELEM_BYTES, n * step_ops), keep=False,
+               what=", operand given")
+    # Operand selected from the table, as the window loop runs it: the
+    # table of n / 2 points of which the first is infinity; windows 0..16
+    # give lane 0 (an infinity row) and lane 2 (a finite row) every digit
+    # from -8 to 8; the accumulator keeps the corner rows above.
+    W = curve.NUM_WINDOWS
+    for n in (2, 4, 24):
+        base = [None] + _curve_points(n // 2 - 1, rng)
+        table = curve.extend_table_glv(curve.build_table(
+            curve.from_affine_host(base, device=dev)))         # [9, n]
+        dig = _rand_digits((n, W), rng)
+        dig[0, :17] = torch.arange(-8, 9, dtype=torch.int32)
+        if n > 2:
+            dig[2, :17] = torch.arange(-8, 9, dtype=torch.int32)
+        dig = dig.to(dev)
+        acc_pts = (pts[-n:] if n < 24 else pts)
+        acc = curve.from_affine_host(acc_pts, device=dev)
+        lanes = curve.to_affine_host(curve.pmap(lambda t: t[1], table))
+        for w in range(17 if n == 24 else 3):
+            got = kernels.point_x16_add_select(acc, table, dig, w)
+            want = kernels.point_x16_add_select_plain(acc, table, dig, w)
+            check(_point_err(got, want) == 0,
+                  f"point_x16_add [{n}] operand selected, window {w}")
+            if n == 24:
+                col = dig[:, w].tolist()
+                check(curve.to_affine_host(got) == [
+                    fh.g1_add(fh.g1_mul(a, 16) if a else None,
+                              fh.g1_mul(q, d % fh.R) if q else None)
+                    for a, q, d in zip(acc_pts, lanes, col)],
+                    f"point_x16_add select, window {w}, against the host's "
+                    f"group law")
+        same = curve.pmap(torch.clone, acc)
+        kernels.point_x16_add_select(same, table, dig, 1, out=same)
+        check(_point_err(same, kernels.point_x16_add_select_plain(
+            acc, table, dig, 1)) == 0,
+            f"point_x16_add [{n}] operand selected, in place")
+        scratch = curve.pmap(torch.clone, acc)
+        report("point_x16_add", [n],
+               kernel_ms(lambda: kernels.point_x16_add_select(
+                   scratch, table, dig, 1, out=scratch)),
+               cuda_ms(lambda: kernels.point_x16_add_select_plain(
+                   acc, table, dig, 1)),
+               bound((6 + 27) * n * ELEM_BYTES + 4 * dig.numel(),
+                     n * step_ops), keep=n == 24)
 
     # the per-point scalar multiplication, both forms, at 1, 2 and 12 points
     for n in (1, 2, 12):
@@ -890,6 +1028,9 @@ def phase_device_prover(dev: torch.device, card: str, crs, insts, gv,
         check_msm_launches(counts, "device prove")
         check(counts["fr_pow_fixed"] == 17,
               f"17 Fr inversions at N=128, saw {counts['fr_pow_fixed']}")
+        check(counts["point_x16_add"] == X16_LAUNCHES_DEVICE_PROVE,
+              f"{X16_LAUNCHES_DEVICE_PROVE} point_x16_add launches a device "
+              f"prove, saw {counts['point_x16_add']}")
         check(whisk.is_valid_whisk_shuffle_proof(
             crs, pre, post, proof, Rand(11), device=dev),
             "ELL=124 device proof accepted by the verifier")

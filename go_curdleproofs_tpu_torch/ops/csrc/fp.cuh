@@ -5,14 +5,21 @@
 // port's torch tensors hold (go_curdleproofs_tpu_torch/ops/fp.py), so a
 // kernel reads and writes those tensors as they are.
 //
-// Multiplication is CIOS Montgomery with 64-bit accumulators (Koc, Acar,
-// Kaliski 1996). Points are homogeneous projective (X : Y : Z) under the
-// complete formulas of Renes-Costello-Batina 2016 (algorithms 7 and 9, a = 0,
-// b3 = 3b = 12), mirroring go_curdleproofs_tpu/ops/curve.py:156-201: no
-// branch for infinity or doubling, so every thread runs the same schedule.
+// Product, square, sum and difference are straight-line PTX with hardware
+// carry chains (fp_asm.cuh, written by gen_fp_asm.py: one asm statement a
+// function, the multiply-adds of a row in two independent chains over even
+// and odd word pairs). Every function takes and returns fully reduced
+// elements, and a Montgomery product with a canonical result is unique, so
+// the kernels give the words of the plain torch versions. Points are
+// homogeneous projective (X : Y : Z) under the complete formulas of
+// Renes-Costello-Batina 2016 (algorithms 7 and 9, a = 0, b3 = 3b = 12),
+// mirroring go_curdleproofs_tpu/ops/curve.py:156-201: no branch for infinity
+// or doubling, so every thread runs the same schedule.
 #pragma once
 
 #include <cstdint>
+
+#include "fp_asm.cuh"
 
 namespace curdle {
 
@@ -26,11 +33,11 @@ struct Point {
   Fp x, y, z;
 };
 
-// p, -p^-1 mod 2^32, and R mod p (the element 1).
+// p (fp_asm.cuh has its words, and -p^-1 mod 2^32, as immediates) and
+// R mod p (the element 1).
 __constant__ uint32_t kP[NW] = {
     0xffffaaabu, 0xb9feffffu, 0xb153ffffu, 0x1eabfffeu, 0xf6b0f624u, 0x6730d2a0u,
     0xf38512bfu, 0x64774b84u, 0x434bacd7u, 0x4b1ba7b6u, 0x397fe69au, 0x1a0111eau};
-constexpr uint32_t kPInv = 0xfffcfffdu;
 __constant__ uint32_t kOne[NW] = {
     0x0002fffdu, 0x76090000u, 0xc40c0002u, 0xebf4000bu, 0x53c758bau, 0x5f489857u,
     0x70525745u, 0x77ce5853u, 0xa256ec6du, 0x5c071a97u, 0xfa80e493u, 0x15f65ec3u};
@@ -45,49 +52,20 @@ __device__ __forceinline__ void fp_set_one(Fp& r) {
   for (int j = 0; j < NW; ++j) r.w[j] = kOne[j];
 }
 
-// r = t - p if t >= p else t, for t < 2p.
-__device__ __forceinline__ void fp_reduce_once(Fp& r, const uint32_t t[NW]) {
-  uint32_t d[NW];
-  uint64_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < NW; ++j) {
-    uint64_t s = (uint64_t)t[j] - kP[j] - borrow;
-    d[j] = (uint32_t)s;
-    borrow = s >> 63;
-  }
-#pragma unroll
-  for (int j = 0; j < NW; ++j) r.w[j] = borrow ? t[j] : d[j];
-}
-
+// r = a + b mod p. r may alias a or b.
 __device__ __forceinline__ void fp_add(Fp& r, const Fp& a, const Fp& b) {
   uint32_t t[NW];
-  uint64_t c = 0;
+  fp_add_words(t, a.w, b.w);
 #pragma unroll
-  for (int j = 0; j < NW; ++j) {
-    uint64_t s = (uint64_t)a.w[j] + b.w[j] + c;
-    t[j] = (uint32_t)s;
-    c = s >> 32;
-  }
-  fp_reduce_once(r, t);  // a + b < 2p < 2^382: no carry out of the top word
+  for (int j = 0; j < NW; ++j) r.w[j] = t[j];
 }
 
+// r = a - b mod p. r may alias a or b.
 __device__ __forceinline__ void fp_sub(Fp& r, const Fp& a, const Fp& b) {
   uint32_t t[NW];
-  uint64_t borrow = 0;
+  fp_sub_words(t, a.w, b.w);
 #pragma unroll
-  for (int j = 0; j < NW; ++j) {
-    uint64_t s = (uint64_t)a.w[j] - b.w[j] - borrow;
-    t[j] = (uint32_t)s;
-    borrow = s >> 63;
-  }
-  uint32_t mask = 0u - (uint32_t)borrow;  // add p back when a < b
-  uint64_t c = 0;
-#pragma unroll
-  for (int j = 0; j < NW; ++j) {
-    uint64_t s = (uint64_t)t[j] + (kP[j] & mask) + c;
-    r.w[j] = (uint32_t)s;
-    c = s >> 32;
-  }
+  for (int j = 0; j < NW; ++j) r.w[j] = t[j];
 }
 
 // r = -a; the negation of 0 is 0, not p.
@@ -105,38 +83,24 @@ __device__ __forceinline__ void fp_neg(Fp& r, const Fp& a) {
   }
 }
 
-// r = a * b / R mod p (CIOS). r may alias a or b.
+// r = a * b / R mod p, fully reduced. r may alias a or b.
 __device__ __forceinline__ void fp_mul(Fp& r, const Fp& a, const Fp& b) {
-  uint32_t t[NW + 2];
+  uint32_t t[NW];
+  fp_mul_words(t, a.w, b.w);
 #pragma unroll
-  for (int j = 0; j < NW + 2; ++j) t[j] = 0;
+  for (int j = 0; j < NW; ++j) r.w[j] = t[j];
+}
+
+// r = a * a / R mod p: the same words as fp_mul(r, a, a), from 78 of its 144
+// partial products. For code that every lane of a warp runs (the ladder of
+// pow_fixed); the cooperative point operations, where the lanes of a group
+// multiply different pairs, keep to fp_mul so that they run one instruction
+// stream. r may alias a.
+__device__ __forceinline__ void fp_sqr(Fp& r, const Fp& a) {
+  uint32_t t[NW];
+  fp_sqr_words(t, a.w);
 #pragma unroll
-  for (int i = 0; i < NW; ++i) {
-    uint64_t c = 0;
-    const uint32_t bi = b.w[i];
-#pragma unroll
-    for (int j = 0; j < NW; ++j) {
-      uint64_t s = (uint64_t)a.w[j] * bi + t[j] + c;
-      t[j] = (uint32_t)s;
-      c = s >> 32;
-    }
-    uint64_t s = (uint64_t)t[NW] + c;
-    t[NW] = (uint32_t)s;
-    t[NW + 1] = (uint32_t)(s >> 32);
-    const uint32_t m = t[0] * kPInv;
-    s = (uint64_t)m * kP[0] + t[0];
-    c = s >> 32;
-#pragma unroll
-    for (int j = 1; j < NW; ++j) {
-      s = (uint64_t)m * kP[j] + t[j] + c;
-      t[j - 1] = (uint32_t)s;
-      c = s >> 32;
-    }
-    s = (uint64_t)t[NW] + c;
-    t[NW - 1] = (uint32_t)s;
-    t[NW] = t[NW + 1] + (uint32_t)(s >> 32);
-  }
-  fp_reduce_once(r, t);  // t < 2p, so t[NW] == 0
+  for (int j = 0; j < NW; ++j) r.w[j] = t[j];
 }
 
 // r = 12 * a (the integer 12, as curve.py's mul_small(., B3)).

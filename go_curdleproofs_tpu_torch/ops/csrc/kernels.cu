@@ -1,7 +1,7 @@
-// The ladder and the two MSM kernels, written for Hopper (sm_90a), with a
-// plain C launcher each for ctypes (go_curdleproofs_tpu_torch/ops/kernels.py).
-// The pointwise kernels (multiply, point add, point double) are in
-// pointwise.cu.
+// The ladder, the two MSM kernels and the fused Horner step, written for
+// Hopper (sm_90a), with a plain C launcher each for ctypes
+// (go_curdleproofs_tpu_torch/ops/kernels.py). The pointwise kernels
+// (multiply, point add, point double) are in pointwise.cu.
 //
 // Every launcher enqueues on the stream it is given, allocates nothing, and
 // returns cudaGetLastError() so that a refused launch reaches the caller.
@@ -10,17 +10,22 @@
 //
 // What bounds them on an H100: chains of dependent Montgomery products (144
 // 32x32->64 multiply-adds each for the product, as many for the reduction)
-// over a few hundred bytes per point, on few points. The compiler makes
-// ~1,240 instructions of one product (fp.cuh: fp_mul), and a lone warp
-// issues them in ~1.7 us (NVIDIA H100 80GB HBM3, 700 W), so the longest
-// chain of products sets the time, not the card's multiply rate. pow_fixed
-// keeps one thread per element (its ladder is one chain of products). The
-// two MSM kernels are chains of complete point operations, each two rounds
-// of independent products: there a group of 8 lanes shares one point
-// operation (point_coop.cuh), which makes an operation 2 products deep and
-// not 12 or 8, and msm_select_reduce splits one job's lanes over several
-// blocks. A shorter product (carry-chained rows), a product split across
-// lanes and bucket accumulation are left to later work.
+// over a few hundred bytes per point, on few points. The product is
+// straight-line PTX on hardware carry chains (fp_asm.cuh). After ptxas
+// mont_mul_kernel, one product with its loads and stores, is 464
+// instructions, 283 of them wide multiply-adds with carry, and a lone warp
+// takes 0.92 us a product and 0.71-0.77 us a square (NVIDIA H100 80GB HBM3,
+// 700 W, time_kernels.py; the 64-bit C form before it: 1,244 instructions,
+// 1.2-1.9 us). Two warps on a scheduler take 1.38x the time of one
+// (time_kernels.py --threads), so one warp keeps its scheduler ~70% busy:
+// the longest chain of products sets the time, not the card's multiply rate. pow_fixed keeps one thread
+// per element (its ladder is one chain) and shortens the chain with a 4-bit
+// window and a dedicated square. The other three are chains of complete
+// point operations, each two rounds of independent products: there a group
+// of 8 lanes shares one point operation (point_coop.cuh), which makes an
+// operation 2 products deep and not 12 or 8, and msm_select_reduce splits
+// one job's lanes over several blocks. A product split across lanes and
+// bucket accumulation are left to later work.
 
 #include <cuda_runtime.h>
 
@@ -37,28 +42,80 @@ namespace {
 // pow_fixed: out[i] = x[i]^e, e fixed for the launch.
 //
 // Replaces go_curdleproofs_tpu/ops/rns_kernels.py:pow_fixed (the square-and-
-// multiply ladder over RNS channels with the exponent bits in SMEM). Here one
-// thread walks one element's whole ladder MSB-first; the exponent words are
-// a kernel argument, so every thread takes the same branch at every bit.
-// The TPU version's size cap (<= 1024 elements) was a VMEM limit and does not
-// apply. 0 maps to 0.
-// Bound: ~570 dependent Montgomery products per element, all in registers
-// (66 per thread); at the decoder's 1024 elements that is 8 blocks, far
-// under one wave of 132 SMs, so latency, not throughput, sets its time.
+// multiply ladder over RNS channels with the exponent bits in SMEM). The TPU
+// version's size cap (<= 1024 elements) was a VMEM limit and does not apply.
+// 0 maps to 0.
+// Bound: operations in name, but one element's ladder is one chain of
+// dependent products, and the batches are small (the decoder's 1024
+// elements, the provers' 256 or a handful), so the chain's length times one
+// lane's product sets the time. What the design does about it:
+//   * a fixed 4-bit window: x^1..x^15 first (7 squarings, 7 products), then
+//     per nibble of the exponent from the top four squarings and, where the
+//     nibble is not 0, one product with a table entry. The nibble is the
+//     same for every thread (the exponent is a kernel argument), so no warp
+//     diverges. For (p+1)/4 and p-2 that is ~387 squarings and ~100
+//     products against ~380 + ~190 one bit at a time;
+//   * the squarings go through fp_sqr (78 + 144 wide multiply-adds against
+//     288);
+//   * the 15 powers of a thread live in dynamic shared memory (720 bytes a
+//     thread), word j of entry k of thread t at [(k * 12 + j) * threads + t]:
+//     the 32 threads of a warp touch 32 neighbouring words, one a bank;
+//   * a block is one warp: one warp already keeps its scheduler's integer
+//     pipe busy and two take turns, so 1024 elements are spread one warp a
+//     scheduler over 32 SMs and not four to a scheduler over 8.
+// Left for later: an element split across lanes (1024 elements use 6% of
+// the card's schedulers), and addition chains for the two fixed exponents.
 
 struct Exponent {
   uint32_t w[curdle::NW];
 };
 
+constexpr int kPowEntries = 15;
+
+extern __shared__ uint32_t pow_table[];
+
+// Entry k (x^k, k = 1..15) of the calling thread's column of the table.
+__device__ __forceinline__ void pow_store(uint32_t* col, int k, const Fp& v) {
+#pragma unroll
+  for (int j = 0; j < curdle::NW; ++j)
+    col[((k - 1) * curdle::NW + j) * blockDim.x] = v.w[j];
+}
+
+__device__ __forceinline__ void pow_load(Fp& v, const uint32_t* col, int k) {
+#pragma unroll
+  for (int j = 0; j < curdle::NW; ++j)
+    v.w[j] = col[((k - 1) * curdle::NW + j) * blockDim.x];
+}
+
+// `top` is the index of the exponent's highest nibble that is not 0.
 __global__ void pow_fixed_kernel(const Fp* __restrict__ x, Fp* __restrict__ out,
-                                 int n, Exponent e, int nbits) {
+                                 int n, Exponent e, int top) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  if (i >= n) return;  // a thread touches only its own column: no barrier
+  uint32_t* col = pow_table + threadIdx.x;
   const Fp base = x[i];
-  Fp acc = base;  // the top bit is 1
-  for (int b = nbits - 2; b >= 0; --b) {
-    curdle::fp_mul(acc, acc, acc);
-    if ((e.w[b >> 5] >> (b & 31)) & 1u) curdle::fp_mul(acc, acc, base);
+  pow_store(col, 1, base);
+#pragma unroll 1
+  for (int k = 1; k < 8; ++k) {
+    Fp t;
+    pow_load(t, col, k);
+    curdle::fp_sqr(t, t);
+    pow_store(col, 2 * k, t);
+    curdle::fp_mul(t, t, base);
+    pow_store(col, 2 * k + 1, t);
+  }
+  Fp acc;
+  pow_load(acc, col, (e.w[top >> 3] >> ((top & 7) * 4)) & 15u);
+#pragma unroll 1
+  for (int idx = top - 1; idx >= 0; --idx) {
+#pragma unroll 1
+    for (int s = 0; s < 4; ++s) curdle::fp_sqr(acc, acc);
+    const int d = (e.w[idx >> 3] >> ((idx & 7) * 4)) & 15u;
+    if (d != 0) {
+      Fp t;
+      pow_load(t, col, d);
+      curdle::fp_mul(acc, acc, t);
+    }
   }
   out[i] = acc;
 }
@@ -81,8 +138,8 @@ __global__ void pow_fixed_kernel(const Fp* __restrict__ x, Fp* __restrict__ out,
 // of the 132 SMs, and 1-6 rows one block. The next window's point is read
 // into registers before the four doublings, which hide the read. Still far
 // from the bound by operations: what is left is 330 times one lane's
-// product; the next steps are a shorter product and, for few rows, a
-// product split across lanes.
+// product and the additions between them; the next step, for few rows, is
+// a product split across lanes.
 
 constexpr int kCombineThreads = 128;
 constexpr int kCombineRows = kCombineThreads / kGroupLanes;
@@ -247,6 +304,76 @@ msm_finish_kernel(const Fp* __restrict__ px, const Fp* __restrict__ py,
   }
 }
 
+// ---------------------------------------------------------------------------
+// point_x16_add: (ox, oy, oz)[i] = 16 * acc[i] + sel[i]: four complete
+// doublings and one complete add in one launch, the step of the window-at-a-
+// time Horner loop (curve.scalar_mul_steps).
+//
+// Replaces go_curdleproofs_tpu/ops/rns_kernels.py:point_x16_add. Same
+// contract: complete (infinity in either operand; acc = sel after the
+// doublings is a doubling inside the add).
+// Bound: operations in name (44 products over 432 bytes a point), but the
+// device prover's batches are 2 to 24 points and a step waits for the step
+// before it, so what costs is the depth of one step and everything the host
+// has to enqueue around it. What the design does about it:
+//   * one 8-lane group a point on the cooperative operations of
+//     point_coop.cuh, the accumulator in the group's shared memory for all
+//     five: 10 dependent products deep, not 44, no 240-register formula and
+//     no stack; a block is one warp (four points), so 24 points are 6 blocks
+//     on 6 SMs and their groups run side by side;
+//   * the operand has two load stages. Either it is given (sx, sy, sz), or
+//     the kernel selects it itself as msm_select_reduce does: lane `lane` of
+//     the group reads coordinate `lane` of entry |d| of point i's column of
+//     the extended table [9, n] for d = digits[i][w], and lane 1 negates it
+//     where d < 0 (d = 0 reads entry 0, infinity; -0 stays 0). With that the
+//     loop needs no gather, no select and no index tensor: one launch a
+//     window;
+//   * the point is read into shared memory whole before anything is written,
+//     so the outputs may be the accumulator's own arrays and the loop
+//     allocates nothing.
+
+constexpr int kStepThreads = 32;
+constexpr int kStepPoints = kStepThreads / kGroupLanes;
+
+__global__ void __launch_bounds__(kStepThreads)
+point_x16_add_kernel(const Fp* ax, const Fp* ay, const Fp* az,
+                     const Fp* __restrict__ sx, const Fp* __restrict__ sy,
+                     const Fp* __restrict__ sz,
+                     const int32_t* __restrict__ digits, int n_windows, int w,
+                     Fp* ox, Fp* oy, Fp* oz, int n) {
+  __shared__ GroupMem mem[kStepPoints];
+  const int lane = threadIdx.x % kGroupLanes;
+  const int group = threadIdx.x / kGroupLanes;
+  const int i = blockIdx.x * kStepPoints + group;
+  if (i >= n) return;  // a whole group leaves: its lanes are in no mask
+  const unsigned mask = curdle::group_mask();
+  GroupMem& m = mem[group];
+
+  Fp sel;
+  if (lane < 3) {
+    const Fp* acc = lane == 0 ? ax : lane == 1 ? ay : az;
+    const Fp* src = lane == 0 ? sx : lane == 1 ? sy : sz;
+    m.acc[lane] = acc[i];
+    if (digits != nullptr) {
+      const int d = digits[(size_t)i * n_windows + w];
+      sel = src[(size_t)(d < 0 ? -d : d) * n + i];
+      if (lane == 1 && d < 0) curdle::fp_neg(sel, sel);
+    } else {
+      sel = src[i];
+    }
+  }
+  __syncwarp(mask);
+#pragma unroll 1
+  for (int k = 0; k < 4; ++k) curdle::coop_double(m, lane, mask);
+  if (lane < 3) m.q[lane] = sel;
+  __syncwarp(mask);
+  curdle::coop_add(m, lane, mask);
+  if (lane < 3) {
+    Fp* out = lane == 0 ? ox : lane == 1 ? oy : oz;
+    out[i] = m.acc[lane];
+  }
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -255,15 +382,24 @@ msm_finish_kernel(const Fp* __restrict__ px, const Fp* __restrict__ py,
 
 extern "C" {
 
+// `threads` a block: 32 (what the wrapper takes), 64 or 128.
 int curdle_pow_fixed(const void* x, void* out, int n, const uint32_t* exponent,
-                     int nbits, void* stream) {
+                     int nbits, int threads, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
+  if (nbits < 1 || (threads != 32 && threads != 64 && threads != 128))
+    return (int)cudaErrorInvalidValue;
   Exponent e;
   for (int j = 0; j < curdle::NW; ++j) e.w[j] = exponent[j];
-  const int threads = 128;
+  const size_t table = (size_t)kPowEntries * sizeof(Fp) * threads;
+  if (table > 48 * 1024) {  // 128 threads: 90 KB, above the default limit
+    cudaError_t rc = cudaFuncSetAttribute(
+        pow_fixed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)table);
+    if (rc != cudaSuccess) return (int)rc;
+  }
   const int blocks = (n + threads - 1) / threads;
-  pow_fixed_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const Fp*)x, (Fp*)out, n, e, nbits);
+  pow_fixed_kernel<<<blocks, threads, table, (cudaStream_t)stream>>>(
+      (const Fp*)x, (Fp*)out, n, e, (nbits - 1) >> 2);
   return (int)cudaGetLastError();
 }
 
@@ -302,6 +438,38 @@ int curdle_msm_select_reduce(const void* tx, const void* ty, const void* tz,
                       (cudaStream_t)stream>>>(
       (const Fp*)px, (const Fp*)py, (const Fp*)pz, (Fp*)ox, (Fp*)oy, (Fp*)oz,
       m, n_windows, split);
+  return (int)cudaGetLastError();
+}
+
+// The operand given: (sx, sy, sz)[n]. The outputs may be the accumulator's
+// arrays.
+int curdle_point_x16_add(const void* ax, const void* ay, const void* az,
+                         const void* sx, const void* sy, const void* sz,
+                         void* ox, void* oy, void* oz, int n, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const int blocks = (n + kStepPoints - 1) / kStepPoints;
+  point_x16_add_kernel<<<blocks, kStepThreads, 0, (cudaStream_t)stream>>>(
+      (const Fp*)ax, (const Fp*)ay, (const Fp*)az, (const Fp*)sx,
+      (const Fp*)sy, (const Fp*)sz, nullptr, 0, 0, (Fp*)ox, (Fp*)oy, (Fp*)oz,
+      n);
+  return (int)cudaGetLastError();
+}
+
+// The operand selected from the table (tx, ty, tz)[9][n] by window w of
+// digits[n][n_windows].
+int curdle_point_x16_add_select(const void* ax, const void* ay, const void* az,
+                                const void* tx, const void* ty, const void* tz,
+                                const int32_t* digits, void* ox, void* oy,
+                                void* oz, int n, int n_windows, int w,
+                                void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  if (digits == nullptr || w < 0 || w >= n_windows)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (n + kStepPoints - 1) / kStepPoints;
+  point_x16_add_kernel<<<blocks, kStepThreads, 0, (cudaStream_t)stream>>>(
+      (const Fp*)ax, (const Fp*)ay, (const Fp*)az, (const Fp*)tx,
+      (const Fp*)ty, (const Fp*)tz, digits, n_windows, w, (Fp*)ox, (Fp*)oy,
+      (Fp*)oz, n);
   return (int)cudaGetLastError();
 }
 

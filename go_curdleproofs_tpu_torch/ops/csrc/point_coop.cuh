@@ -4,13 +4,16 @@
 // Why: a complete RCB16 operation (fp.cuh: point_add, point_double) is two
 // rounds of independent Montgomery products with only additions between
 // them: 6 + 6 for an add, 4 + 4 for a double. One thread runs them one after
-// another, 12 or 8 products deep, and a product is ~1,240 instructions
-// (~1.7 us for a lone warp on an H100, 700 W). The kernels that call these
-// functions (kernels.cu: windowed_combine, msm_select_reduce) are chains of
-// dependent point operations on few points, so the depth of one operation
-// sets their time. Here lane k of the group computes product k of a round:
-// an operation is 2 products deep, and a lane holds one product's registers
-// and not a whole formula's 255.
+// another, 12 or 8 products deep, and a product is ~0.9 us for a lone warp
+// (NVIDIA H100 80GB HBM3, 700 W; kernels.cu's header has the counts). The
+// kernels that call these functions (kernels.cu: windowed_combine,
+// msm_select_reduce, point_x16_add) are chains of dependent point operations
+// on few points, so the depth of one operation sets their time. Here lane k
+// of the group computes product k of a round: an operation is 2 products
+// deep, and a lane holds one product's registers and not a whole formula's
+// 255. The lanes of a group multiply different pairs, so they all call
+// fp_mul, also where the pair is a square: fp_sqr in some lanes would make
+// the warp run both instruction streams one after the other.
 //
 // Where the data lives: in shared memory, one GroupMem (864 bytes) a group.
 // The accumulator, the incoming point, a round's products and the round-2

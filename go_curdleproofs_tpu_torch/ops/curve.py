@@ -19,7 +19,8 @@ through `windowed_combine` (one launch, its time the same from 1 row to
 
 A per-point scalar multiplication has two forms: `scalar_mul_device` (all
 windows selected, one `windowed_combine` launch) and `scalar_mul_steps`
-(the window-at-a-time loop on the fused `point_x16_add` step), which the
+(the window-at-a-time loop on the fused `point_x16_add` step, which
+selects its own table entry: one launch a window), which the
 device-resident prover uses for its handful-of-points multiplications.
 
 The host prover's device API is `StackedVec.msm_many` (one wide-phase launch
@@ -264,17 +265,17 @@ def scalar_mul_device(points: PointVec, digits: torch.Tensor) -> PointVec:
 
 def scalar_mul_steps(points: PointVec, digits: torch.Tensor) -> PointVec:
     """out[i] = s_i * P_i over [..., n] (GLV digits [..., 2n, W]) as the
-    window-at-a-time loop: per window one `table_select` of that digit
-    column and one fused `x16_add`, so the [W, 2n] selected points of
+    window-at-a-time loop: one `point_x16_add_select` launch a window and
+    nothing else. The kernel picks its table entry by that window's digit
+    itself and writes the accumulator in place, so the loop gathers,
+    selects and allocates nothing, and the [W, 2n] selected points of
     `scalar_mul_device` are never materialised. The device prover uses it
     for its per-point multiplications of a handful of points."""
     table = extend_table_glv(build_table(points))          # [9, ..., 2n]
-    neg_y = fp.neg(table.y)              # once, not once a window
-    mag, neg = digits.abs().long(), digits < 0
+    digits = digits.contiguous()
     acc = infinity(table.x.shape[1:-1], device=points.x.device)
     for w in range(digits.shape[-1]):
-        acc = x16_add(acc, table_select(table, neg_y, mag[..., w],
-                                        neg[..., w]))
+        kernels.point_x16_add_select(acc, table, digits, w, out=acc)
     return _halves_add(acc)
 
 

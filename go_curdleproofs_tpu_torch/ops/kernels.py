@@ -1,11 +1,12 @@
 """The port's device kernels: wrappers, plain versions, counters.
 
 Each kernel (CUDA C++ for sm_90a; ops/csrc/pointwise.cu holds mont_mul,
-point_add, point_double, point_x16_add, fr_mont_mul and fr_pow_fixed,
-ops/csrc/kernels.cu holds pow_fixed, windowed_combine and
-msm_select_reduce, the last two on the cooperative point operations of
+point_add, point_double, fr_mont_mul and fr_pow_fixed, ops/csrc/kernels.cu
+holds pow_fixed, windowed_combine, msm_select_reduce and point_x16_add,
+the last three on the cooperative point operations of
 ops/csrc/point_coop.cuh, ops/csrc/transcript.cu holds strobe_absorb_stream
-and strobe_challenge32) has
+and strobe_challenge32; the Fp arithmetic of all of them is
+ops/csrc/fp_asm.cuh, written by ops/csrc/gen_fp_asm.py) has
 
   * a wrapper that checks its tensors and, for CUDA tensors, launches the
     kernel on PyTorch's current stream, raising if the launch is refused;
@@ -42,7 +43,7 @@ from . import curve, fp, fr, keccak_dev
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _CU_SOURCES = ("kernels.cu", "pointwise.cu", "transcript.cu")  # a library each
-_SOURCES = ("fp.cuh", "fr.cuh", "point_coop.cuh") + _CU_SOURCES
+_SOURCES = ("fp.cuh", "fp_asm.cuh", "fr.cuh", "point_coop.cuh") + _CU_SOURCES
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -52,7 +53,7 @@ KERNEL_SOURCE = {"mont_mul": "pointwise.cu", "point_add": "pointwise.cu",
                  "point_double": "pointwise.cu", "pow_fixed": "kernels.cu",
                  "windowed_combine": "kernels.cu",
                  "msm_select_reduce": "kernels.cu",
-                 "point_x16_add": "pointwise.cu",
+                 "point_x16_add": "kernels.cu",
                  "fr_pow_fixed": "pointwise.cu",
                  "fr_mont_mul": "pointwise.cu",
                  "strobe_absorb_stream": "transcript.cu",
@@ -140,7 +141,8 @@ def _load() -> SimpleNamespace:
             transcript = ctypes.CDLL(str(paths["transcript.cu"]))
             vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             fns = SimpleNamespace(
-                point_x16_add=pointwise.curdle_point_x16_add,
+                point_x16_add=main.curdle_point_x16_add,
+                point_x16_add_select=main.curdle_point_x16_add_select,
                 fr_mont_mul=pointwise.curdle_fr_mont_mul,
                 fr_pow_fixed=pointwise.curdle_fr_pow_fixed,
                 strobe_absorb_stream=transcript.curdle_strobe_absorb_stream,
@@ -152,13 +154,14 @@ def _load() -> SimpleNamespace:
                 point_add=pointwise.curdle_point_add,
                 point_double=pointwise.curdle_point_double)
             fns.pow_fixed.argtypes = [
-                vp, vp, i32, ctypes.POINTER(ctypes.c_uint32), i32, vp]
+                vp, vp, i32, ctypes.POINTER(ctypes.c_uint32), i32, i32, vp]
             fns.windowed_combine.argtypes = [vp] * 6 + [i32, i32, vp]
             fns.msm_select_reduce.argtypes = [vp] * 10 + [i32] * 4 + [vp]
             fns.mont_mul.argtypes = [vp, vp, vp, i64, i32, i32, vp]
             fns.point_add.argtypes = [vp] * 9 + [i64, vp]
             fns.point_double.argtypes = [vp] * 6 + [i64, vp]
-            fns.point_x16_add.argtypes = [vp] * 9 + [i64, vp]
+            fns.point_x16_add.argtypes = [vp] * 9 + [i32, vp]
+            fns.point_x16_add_select.argtypes = [vp] * 10 + [i32] * 3 + [vp]
             fns.fr_mont_mul.argtypes = [vp, vp, vp, i64, i32, i32, vp]
             fns.fr_pow_fixed.argtypes = [
                 vp, vp, i64, ctypes.POINTER(ctypes.c_uint32), i32, vp]
@@ -333,12 +336,20 @@ def point_double(p: curve.PointVec) -> curve.PointVec:
 pow_fixed_plain = fp.pow_fixed_plain
 
 
-def pow_fixed(x: torch.Tensor, exponent: int) -> torch.Tensor:
-    """x^exponent elementwise over [..., 12] elements (exponent >= 1)."""
+_POW_THREADS = 32           # one warp a block: pow_fixed_kernel's note
+
+
+def pow_fixed(x: torch.Tensor, exponent: int,
+              _threads: Optional[int] = None) -> torch.Tensor:
+    """x^exponent elementwise over [..., 12] elements (exponent >= 1).
+    `_threads` (timing scripts only) overrides the threads a block."""
     if exponent < 1 or exponent.bit_length() > 32 * fp.NWORDS:
         raise ValueError("pow_fixed exponent must lie in [1, 2^384)")
     if x.shape[-1] != fp.NWORDS:
         raise ValueError(f"pow_fixed: bad element shape {tuple(x.shape)}")
+    threads = _POW_THREADS if _threads is None else _threads
+    if threads not in (32, 64, 128):
+        raise ValueError(f"pow_fixed: {threads} threads a block")
     if _route(x) == "cpu":
         return pow_fixed_plain(x, exponent)
     out = torch.empty_like(x)
@@ -348,7 +359,7 @@ def pow_fixed(x: torch.Tensor, exponent: int) -> torch.Tensor:
     with torch.cuda.device(x.device):
         rc = lib.pow_fixed(
             x.data_ptr(), out.data_ptr(), x.numel() // fp.NWORDS, words,
-            exponent.bit_length(), _stream(x.device))
+            exponent.bit_length(), threads, _stream(x.device))
     _check(rc, "pow_fixed")
     launches["pow_fixed"] += 1
     return out
@@ -488,6 +499,60 @@ def point_x16_add(acc: curve.PointVec, sel: curve.PointVec) -> curve.PointVec:
                                acc.x.numel() // fp.NWORDS,
                                _stream(acc.x.device))
     _check(rc, "point_x16_add")
+    launches["point_x16_add"] += 1
+    return out
+
+
+def point_x16_add_select_plain(acc: curve.PointVec, table: curve.PointVec,
+                               digits: torch.Tensor, w: int) -> curve.PointVec:
+    d = digits[..., w]
+    sel = curve.table_select(table, fp.neg(table.y), d.abs().long(), d < 0)
+    return point_x16_add_plain(acc, sel)
+
+
+def point_x16_add_select(acc: curve.PointVec, table: curve.PointVec,
+                         digits: torch.Tensor, w: int,
+                         out: Optional[curve.PointVec] = None
+                         ) -> curve.PointVec:
+    """16 * acc + (entry |d| of the table, negated where d < 0) with
+    d = digits[..., w]: the step of `point_x16_add` with the operand
+    selected inside the same kernel. acc: [..., 12] per coordinate; table:
+    [9, ..., 12] per coordinate (entry k = k times the point, entry 0
+    infinity); digits: [..., W] int32 signed window digits in [-8, 8].
+    The result goes into `out` when given (three tensors like acc's, which
+    may be acc's own: the kernel reads a point whole before it writes it),
+    else into fresh tensors."""
+    _check_points("point_x16_add_select", acc,
+                  *(() if out is None else (out,)))
+    for t in table:
+        if t.shape != (curve.TABLE_SIZE,) + acc.x.shape:
+            raise ValueError(
+                f"point_x16_add_select: table {tuple(t.shape)} is not "
+                f"[{curve.TABLE_SIZE}] + {tuple(acc.x.shape)}")
+    if digits.ndim < 1 or digits.shape[:-1] != acc.x.shape[:-1]:
+        raise ValueError(
+            f"point_x16_add_select: digits {tuple(digits.shape)} do not "
+            f"match points {tuple(acc.x.shape[:-1])}")
+    n_win = digits.shape[-1]
+    if not 0 <= w < n_win:
+        raise ValueError(f"point_x16_add_select: window {w} outside "
+                         f"[0, {n_win})")
+    if _route(*acc, *table, digits, *(out or ())) == "cpu":
+        res = point_x16_add_select_plain(acc, table, digits, w)
+        if out is None:
+            return res
+        for dst, src in zip(out, res):
+            dst.copy_(src)
+        return out
+    if out is None:
+        out = _empty_points(acc.x)
+    lib = _load()
+    with torch.cuda.device(acc.x.device):
+        rc = lib.point_x16_add_select(
+            *(t.data_ptr() for t in acc), *(t.data_ptr() for t in table),
+            digits.data_ptr(), *(t.data_ptr() for t in out),
+            acc.x.numel() // fp.NWORDS, n_win, w, _stream(acc.x.device))
+    _check(rc, "point_x16_add_select")
     launches["point_x16_add"] += 1
     return out
 

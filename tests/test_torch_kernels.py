@@ -205,6 +205,9 @@ def test_plain_versions_call_no_wrapper(monkeypatch):
     kernels.windowed_combine_plain(sel)
     kernels.msm_select_reduce_plain(table, dig)
     kernels.point_x16_add_plain(pv, pv)
+    monkeypatch.setattr(kernels, "point_x16_add_select", boom)
+    kernels.point_x16_add_select_plain(
+        pv, curve.pmap(lambda t: t[:, 0], table), dig[0], 1)
     kernels.fr_mont_mul_plain(s, s)
     kernels.fr_pow_fixed_plain(s, 0b1011)
     kernels.strobe_absorb_stream_plain(state, stream, 20, pbs, final_pb=3)
@@ -286,6 +289,172 @@ def test_scalar_mul_steps_equals_scalar_mul_device_and_oracle():
     assert steps == [fh.g1_mul(p, s) for p, s in zip(pts, sc)]
 
 
+def _select_case(rng, device=CPU):
+    """18 points as a [2, 9] batch, their extended table [9, 2, 18],
+    digits [2, 18, 3] (window 0 runs through -8..8, window 2 is all zero)
+    and an accumulator with infinity rows, a row that meets its operand
+    after the four doublings (the add is a doubling) and a row that meets
+    its negative (the sum cancels). Returns the torch inputs and the host
+    points behind them."""
+    pts = _rand_points(rng, 18)
+    pts[5] = pts[13] = None
+    digits = rng.integers(-8, 9, (2, 18, 3), dtype=np.int32)
+    digits[..., 0].reshape(-1)[:17] = np.arange(-8, 9)
+    digits[..., 0].reshape(-1)[17:] = [-8, 8, 0] + [3] * 16
+    digits[..., 2] = 0
+    acc = _rand_points(rng, 36)
+    for i in (0, 9, 20):
+        acc[i] = None
+    inv16 = pow(16, -1, fh.R)
+    # extended lane 2i is point i: lanes 4 and 6 are points 2 and 3
+    d4, d6 = int(digits[0, 4, 0]), int(digits[0, 6, 0])
+    acc[4] = fh.g1_mul(pts[2], d4 * inv16 % fh.R)
+    acc[6] = fh.g1_mul(pts[3], -d6 * inv16 % fh.R)
+    pv = curve.pmap(lambda t: t.reshape(2, 9, fp.NWORDS),
+                    curve.from_affine_host(pts, device=device))
+    table = curve.extend_table_glv(curve.build_table(pv))
+    accv = curve.pmap(lambda t: t.reshape(2, 18, fp.NWORDS),
+                      curve.from_affine_host(acc, device=device))
+    return pts, acc, accv, table, torch.from_numpy(digits).to(device)
+
+
+@pytest.mark.parametrize("w", [0, 1, 2])
+def test_point_x16_add_select_matches_plain_select_and_pallas_kernel(w):
+    """B4's second load stage: the plain version equals point_x16_add_plain
+    on curve.table_select word for word, the JAX package's step (its
+    select, then the fused Pallas kernel in interpret mode) and the oracle
+    by affine value."""
+    rng = np.random.default_rng(52)
+    pts, acc, accv, table, digits = _select_case(rng)
+    got = kernels.point_x16_add_select(accv, table, digits, w)
+    d = digits[..., w]
+    sel = curve.table_select(table, fp.neg(table.y), d.abs().long(), d < 0)
+    want = kernels.point_x16_add_plain(accv, sel)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    assert all(torch.equal(u, v) for u, v in zip(
+        got, kernels.point_x16_add_select_plain(accv, table, digits, w)))
+    assert got.x.shape == (2, 18, fp.NWORDS)
+
+    jtab = jcurve.extend_table_glv(
+        jcurve._build_table(jcurve.from_affine_host(pts)))
+    jsel = jcurve._table_select(jtab,
+                                jnp.asarray(digits[..., w].reshape(-1).numpy()))
+    jout = rns_kernels.point_x16_add(jcurve.from_affine_host(acc),
+                                     jcurve._settle_tags(jsel),
+                                     interpret=True)
+    got_aff = curve.to_affine_host(got)
+    assert got_aff == jcurve.to_affine_host(jout)
+    lam_pts = curve.to_affine_host(curve.pmap(lambda t: t[1], table))
+    flat = digits[..., w].reshape(-1).tolist()
+    assert got_aff == [fh.g1_add(fh.g1_mul(a, 16) if a else None,
+                                 fh.g1_mul(q, dd % fh.R) if q else None)
+                       for a, q, dd in zip(acc, lam_pts, flat)]
+    if w == 0:
+        assert got_aff[6] is None and got_aff[4] is not None
+
+
+def test_point_x16_add_select_writes_into_out_and_in_place():
+    rng = np.random.default_rng(53)
+    _, _, accv, table, digits = _select_case(rng)
+    want = kernels.point_x16_add_select(accv, table, digits, 1)
+    out = curve.pmap(torch.zeros_like, accv)
+    res = kernels.point_x16_add_select(accv, table, digits, 1, out=out)
+    assert all(r is o for r, o in zip(res, out))
+    assert all(torch.equal(u, v) for u, v in zip(out, want))
+    acc2 = curve.pmap(torch.clone, accv)
+    kernels.point_x16_add_select(acc2, table, digits, 1, out=acc2)
+    assert all(torch.equal(u, v) for u, v in zip(acc2, want))
+    kernels.reset_launches()
+    kernels.point_x16_add_select(accv, table, digits, 0)
+    assert kernels.launches["point_x16_add"] == 0          # the CPU route
+
+
+@pytest.mark.parametrize("scalars", ["zero", "one", "r-1", "random"])
+def test_scalar_mul_steps_matches_both_packages_and_oracle(scalars):
+    """The window loop (one point_x16_add_select a window) against the
+    one-launch form, the oracle and the JAX package's scalar_mul_device,
+    with an infinity among the points."""
+    rng = np.random.default_rng(54)
+    pts = _rand_points(rng, 4)
+    pts[2] = None
+    sc = {"zero": [0] * 4, "one": [1] * 4, "r-1": [fh.R - 1] * 4,
+          "random": [int.from_bytes(rng.bytes(32), "little") % fh.R
+                     for _ in range(4)]}[scalars]
+    pv = curve.from_affine_host(pts, device=CPU)
+    dig = curve.scalars_to_digits(sc)
+    steps = curve.to_affine_host(
+        curve.scalar_mul_steps(pv, torch.from_numpy(dig)))
+    assert steps == curve.to_affine_host(
+        curve.scalar_mul_device(pv, torch.from_numpy(dig)))
+    assert steps == [fh.g1_mul(p, s) for p, s in zip(pts, sc)]
+    assert steps == jcurve.to_affine_host(jcurve.scalar_mul_device(
+        jcurve.from_affine_host(pts), jnp.asarray(dig)))
+
+
+def test_scalar_mul_steps_is_one_wrapper_call_a_window(monkeypatch):
+    """No select, no gather around the step: the loop calls the select
+    entry once a window, in place, and selects nothing itself (on the CPU
+    the entry's plain version does the one table_select of its window)."""
+    rng = np.random.default_rng(55)
+    pv = curve.from_affine_host(_rand_points(rng, 2), device=CPU)
+    dig = torch.from_numpy(curve.scalars_to_digits([5, fh.R - 7]))
+    calls = []
+    real = kernels.point_x16_add_select
+
+    def counted(acc, table, digits, w, out=None):
+        calls.append((w, out is acc))
+        return real(acc, table, digits, w, out=out)
+
+    def boom(*a, **k):
+        raise AssertionError("scalar_mul_steps selected outside the kernel")
+
+    selects = []
+    real_select = curve.table_select
+    monkeypatch.setattr(kernels, "point_x16_add_select", counted)
+    monkeypatch.setattr(curve, "table_select", lambda *a: (
+        selects.append(len(calls)), real_select(*a))[1])
+    monkeypatch.setattr(curve, "table_select_windows", boom)
+    monkeypatch.setattr(curve, "x16_add", boom)
+    got = curve.to_affine_host(curve.scalar_mul_steps(pv, dig[:, :5]))
+    assert calls == [(w, True) for w in range(5)]
+    assert selects == [1, 2, 3, 4, 5]       # inside the entry, one a window
+    assert len(got) == 2
+
+
+def test_select_entry_checks_inputs_and_never_falls_back():
+    rng = np.random.default_rng(56)
+    _, _, acc, table, digits = _select_case(rng)
+    ok = lambda **kw: kernels.point_x16_add_select(
+        kw.get("acc", acc), kw.get("table", table),
+        kw.get("digits", digits), kw.get("w", 0), out=kw.get("out"))
+    ok()
+    with pytest.raises(TypeError):                          # int64 digits
+        ok(digits=digits.long())
+    with pytest.raises(TypeError):
+        ok(acc=curve.pmap(lambda t: t.long(), acc))
+    with pytest.raises(ValueError):                         # a view
+        ok(digits=torch.cat([digits, digits], -1)[..., 0::2])
+    with pytest.raises(ValueError):
+        ok(table=curve.pmap(lambda t: torch.cat([t, t])[0::2], table))
+    with pytest.raises(ValueError):                         # 8 entries
+        ok(table=curve.pmap(lambda t: t[:8].contiguous(), table))
+    for w in (-1, 3):
+        with pytest.raises(ValueError):
+            ok(w=w)
+    with pytest.raises(ValueError):                         # 17 lanes of digits
+        ok(digits=digits[:, :17].contiguous())
+    with pytest.raises(ValueError):                         # 17 lanes of points
+        ok(acc=curve.pmap(lambda t: t[:, :17].contiguous(), acc))
+    with pytest.raises(ValueError):                         # out of another shape
+        ok(out=curve.pmap(lambda t: t[:1].contiguous(), acc))
+    with pytest.raises(ValueError):                         # no route
+        ok(acc=curve.pmap(lambda t: t.to("meta"), acc),
+           table=curve.pmap(lambda t: t.to("meta"), table),
+           digits=digits.to("meta"))
+    with pytest.raises(ValueError):
+        kernels.pow_fixed(acc.x, 3, _threads=48)
+
+
 def test_new_wrappers_check_inputs_and_never_fall_back():
     x = fp.from_ints([1, 2, 3], CPU)
     pv = curve.PointVec(x, x, x)
@@ -347,9 +516,11 @@ def test_plain_route_counts_no_launch():
 
 
 def test_cuda_constants_match_field():
-    """fp.cuh's p, -p^-1 mod 2^32 and R mod p (the card compiles them;
-    here they are read back and checked)."""
-    src = (Path(kernels.__file__).parent / "csrc" / "fp.cuh").read_text()
+    """fp.cuh's p and R mod p, and the immediates of fp_asm.cuh: p's words
+    and -p^-1 mod 2^32 (the card compiles them; here they are read back
+    and checked)."""
+    csrc = Path(kernels.__file__).parent / "csrc"
+    src = (csrc / "fp.cuh").read_text()
 
     def words(name):
         body = re.search(name + r"\[NW\] = \{([^}]*)\}", src).group(1)
@@ -358,8 +529,14 @@ def test_cuda_constants_match_field():
 
     assert words("kP") == P
     assert words("kOne") == (1 << 384) % P
-    pinv = int(re.search(r"kPInv = (0x[0-9a-f]+)u", src).group(1), 16)
+    asm = (csrc / "fp_asm.cuh").read_text()
+    pinvs = set(re.findall(r"mul\.lo\.u32 mi, \w+, (0x[0-9a-f]+);", asm))
+    assert len(pinvs) == 1
+    pinv = int(pinvs.pop(), 16)
     assert (pinv * P) % (1 << 32) == (1 << 32) - 1
+    p_words = {(P >> (32 * j)) & 0xFFFFFFFF for j in range(12)}
+    assert {int(h, 16) for h in re.findall(r"0x[0-9a-f]{8}", asm)} \
+        == p_words | {pinv}
 
 
 @pytest.fixture
@@ -480,3 +657,71 @@ def test_cuda_device_prover_kernels_match_plain(cuda_device):
     assert kernels.launches["strobe_challenge32"] == 4
     with pytest.raises(ValueError):
         kernels.fr_mont_mul(torch.cat([a, a])[0::2], a)
+
+
+@pytest.mark.cuda
+def test_cuda_product_stress_and_square(cuda_device):
+    """The carry-chained product on every pair of edge elements and on
+    random pairs against the plain version and Python ints, and the
+    dedicated square against the product."""
+    rng = np.random.default_rng(57)
+    edge = [0, 1, 2, P - 1, P - 2, (P + 1) // 2, (1 << 384) % P,
+            (1 << 768) % P, (1 << 380) - 1]
+    edge += [1 << k for k in (31, 32, 33, 63, 64, 191, 192, 351, 352, 380)]
+    edge += [(1 << k) - 1 for k in (32, 64, 192, 352)]
+    xs = [a for a in edge for _ in edge]
+    ys = [b for _ in edge for b in edge]
+    xs += [int.from_bytes(rng.bytes(48), "little") % P for _ in range(4096)]
+    ys += [int.from_bytes(rng.bytes(48), "little") % P for _ in range(4096)]
+    a, b = fp.from_ints(xs, cuda_device), fp.from_ints(ys, cuda_device)
+    got = kernels.mont_mul(a, b)
+    assert torch.equal(got, kernels.mont_mul_plain(a, b))
+    assert fp.to_ints(got) == [x * y % P for x, y in zip(xs, ys)]
+    assert torch.equal(kernels.pow_fixed(a, 2), kernels.mont_mul(a, a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exponent", [1, 2, 3, 15, 16, 17, (1 << 384) - 1,
+                                      0x9000A00000B0000C0D, 0x1F3, 0x2F03,
+                                      0x7000F, (P + 1) // 4, P - 2])
+def test_cuda_pow_fixed_window_ladder(cuda_device, exponent):
+    rng = np.random.default_rng(58)
+    xs = [0, 1, P - 1] + [int.from_bytes(rng.bytes(48), "little") % P
+                          for _ in range(30)]
+    x = fp.from_ints(xs, cuda_device)
+    for threads in (None, 64, 128):
+        got = kernels.pow_fixed(x, exponent, _threads=threads)
+        assert fp.to_ints(got) == [pow(v, exponent, P) for v in xs]
+    assert torch.equal(got, kernels.pow_fixed_plain(x, exponent))
+
+
+@pytest.mark.cuda
+def test_cuda_point_x16_add_select_and_steps(cuda_device):
+    """Both load stages of B4 on the card against their plain versions,
+    in place too, and the window loop against the one-launch form."""
+    rng = np.random.default_rng(59)
+    pts, _, acc, table, digits = _select_case(rng, cuda_device)
+    kernels.reset_launches()
+    for w in range(3):
+        got = kernels.point_x16_add_select(acc, table, digits, w)
+        want = kernels.point_x16_add_select_plain(acc, table, digits, w)
+        assert all(torch.equal(u, v) for u, v in zip(got, want))
+        d = digits[..., w]
+        sel = curve.table_select(table, fp.neg(table.y), d.abs().long(),
+                                 d < 0)
+        same = kernels.point_x16_add(acc, sel)
+        assert all(torch.equal(u, v) for u, v in zip(same, want))
+    acc2 = curve.pmap(torch.clone, acc)
+    kernels.point_x16_add_select(acc2, table, digits, 0, out=acc2)
+    assert all(torch.equal(u, v) for u, v in zip(
+        acc2, kernels.point_x16_add_select_plain(acc, table, digits, 0)))
+    assert kernels.launches["point_x16_add"] == 7
+    sc = [0, 1, fh.R - 1, 12345]
+    pv = curve.from_affine_host([p for p in pts if p][:4],
+                                device=cuda_device)
+    dig = torch.from_numpy(curve.scalars_to_digits(sc)).to(cuda_device)
+    kernels.reset_launches()
+    steps = curve.scalar_mul_steps(pv, dig)
+    assert kernels.launches["point_x16_add"] == W
+    assert curve.to_affine_host(steps) == curve.to_affine_host(
+        curve.scalar_mul_device(pv, dig))
