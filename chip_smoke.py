@@ -40,7 +40,18 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
      torch.cuda.set_sync_debug_mode("error"), so any synchronising call in
      it fails the run; launch counts of every kernel over that prove
      (point_x16_add exactly 363: 11 window loops of 33 launches);
-     cold/warm times of both provers side by side.
+     cold/warm times of both provers side by side; strobe_absorb_stream
+     exactly 28 and strobe_challenge32 exactly 22 launches a device prove.
+
+The device prover's kernels (phase 3) are held at the shapes of that path
+and at their corners: the Fr product on 65,536 pairs (every pair of ~40
+edge elements and of raw first operands up to 2^256 - 1, then random
+ones) against the plain version and Python ints, the square against the
+product; fr_pow_fixed at [8] and [1] with exponent r - 2 and at awkward
+exponents, with the lone-warp time of one Fr product and one square;
+strobe_absorb_stream at every start position and length that meets an
+edge of the warp's lane words or of the rate, with and without the forced
+permutation, against the plain version and the host STROBE.
 
 Prints the kernel summary as one JSON line, then as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
@@ -113,7 +124,11 @@ KECCAK_INT32_OPS = 24 * 150 * 2
 # msm_select_reduce: one block of 128 threads a (window, job) (both commit
 # f0bd51a). pow_fixed: one bit a step on the 64-bit C product;
 # point_x16_add: one thread a point, 44 products deep (both commit c3c7562).
+# fr_pow_fixed: one bit a step on the 64-bit C product; strobe_absorb_stream:
+# one thread permutes out of shared memory (both commit 9fb31f6).
 PREVIOUS_DESIGN_MS = {
+    "fr_pow_fixed [1] exponent r-2": 0.2807,
+    "strobe_absorb_stream [256 x 48]": 1.5394,
     "windowed_combine [33, 1]": 5.5717,
     "windowed_combine [33, 6]": 5.5730,
     "windowed_combine [33, 2048]": 5.8333,
@@ -126,7 +141,11 @@ PREVIOUS_DESIGN_MS = {
     "point_x16_add [2]": 0.1669,
 }
 MADS_PER_SQUARE = 12 * 13 // 2 + 12 * 12   # 78 partial products, reduction
-X16_LAUNCHES_DEVICE_PROVE = 363            # 11 window loops x 33 windows
+FR_MADS_PER_SQUARE = 8 * 9 // 2 + 8 * 8    # 36 partial products, reduction
+# launches of one ELL=124 device prove that a redesign must leave as they are
+DEVICE_PROVE_LAUNCHES = {"fr_pow_fixed": 17, "point_x16_add": 363,
+                         "strobe_absorb_stream": 28,
+                         "strobe_challenge32": 22}
 
 
 def check(cond: bool, what: str) -> None:
@@ -251,7 +270,8 @@ def _rand_digits(shape, rng: random.Random) -> torch.Tensor:
 
 
 def ladder_steps(e: int):
-    """(squarings, products) of pow_fixed's 4-bit window ladder for e."""
+    """(squarings, products) of the 4-bit window ladder of pow_fixed and
+    fr_pow_fixed for e."""
     nibbles = [(e >> (4 * i)) & 15 for i in range((e.bit_length() + 3) // 4)]
     return (7 + 4 * (len(nibbles) - 1),
             7 + sum(d != 0 for d in nibbles[:-1]))
@@ -277,6 +297,41 @@ def edge_elements(rng: random.Random):
                 v = (((p >> 352) - 1) << 352) | ((1 << 352) - 1)
             vals.append(v)
     return vals
+
+
+def fr_edge_elements(rng: random.Random):
+    """Scalar-field values on which a lost carry would show (below r) and
+    raw 32-byte words at or above r (first operands of the product only)."""
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
+
+    r, top = fh.R, 1 << 256
+    vals = [0, 1, 2, r - 1, r - 2, (r + 1) // 2, top % r, top * top % r,
+            (1 << 254) - 1]
+    for k in (31, 32, 33, 63, 64, 127, 128, 223, 224):
+        vals += [1 << k, (1 << k) - 1]
+    for j in range(8):
+        for fill in (0, 0xFFFFFFFF):
+            v = rng.randrange(r) & ~(0xFFFFFFFF << (32 * j))
+            v |= fill << (32 * j)
+            if v >= r:      # all ones in the top word: the largest below
+                v = (((r >> 224) - 1) << 224) | ((1 << 224) - 1)
+            vals.append(v)
+    raw = [top - 1, top - 2, r, r + 1, 2 * r - 1, 2 * r, top - r,
+           (0xFFFFFFFF << 224) | 1, top - 1 - (1 << 224)]
+    return vals, raw
+
+
+def _raw_fr(vals, dev: torch.device) -> torch.Tensor:
+    """[n, 8] int32 words of values below 2^256, taken as they are."""
+    words = [[(v >> (32 * j)) & 0xFFFFFFFF for j in range(8)] for v in vals]
+    return torch.tensor([[w - (1 << 32) if w >> 31 else w for w in row]
+                         for row in words], dtype=torch.int32, device=dev)
+
+
+def _fr_values(t: torch.Tensor):
+    """The integers that [n, 8] int32 words hold."""
+    return [sum((w & 0xFFFFFFFF) << (32 * j) for j, w in enumerate(row))
+            for row in t.tolist()]
 
 
 def phase_kernels(dev: torch.device) -> dict:
@@ -595,9 +650,11 @@ def phase_kernels_device_prover(dev: torch.device) -> dict:
         if keep:
             res[name] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, **bnd)
 
-    # B8: gamma^-1 = gamma^(r-2) over 1 and 8 elements (with 0, 1, r-1)
+    # B8: gamma^-1 = gamma^(r-2) over 1 and 8 elements (with 0, 1, r-1).
+    # The bound counts the work of the 4-bit window ladder, as B7's does:
+    # squarings at 36 + 64 multiply-adds, products at 128.
     e = fh.R - 2
-    ladder = e.bit_length() - 1 + bin(e).count("1") - 1
+    n_sqr, n_mul = ladder_steps(e)
     for n in (8, 1):
         vals = ([0, 1, fh.R - 1] + [rng.randrange(fh.R)
                                     for _ in range(5)])[-n:]
@@ -609,8 +666,60 @@ def phase_kernels_device_prover(dev: torch.device) -> dict:
         report("fr_pow_fixed", f"[{n}] exponent r-2",
                kernel_ms(lambda: kernels.fr_pow_fixed(x, e)),
                cuda_ms(lambda: kernels.fr_pow_fixed_plain(x, e), 1),
-               bound(2 * n * FR_BYTES, n * ladder, FR_MADS_PER_PRODUCT),
+               bound(2 * n * FR_BYTES, n * (
+                   n_mul + n_sqr * FR_MADS_PER_SQUARE / FR_MADS_PER_PRODUCT),
+                   FR_MADS_PER_PRODUCT),
                keep=n == 1)
+    # awkward exponents: below 16, all ones, zero nibbles, every bit length
+    # mod 4, on 32 elements with 0, 1 and r - 1
+    vals = [0, 1, fh.R - 1] + [rng.randrange(fh.R) for _ in range(29)]
+    x = fr.from_ints(vals, dev)
+    for e in (1, 2, 15, 16, 17, (1 << 255) - 1, (1 << 256) - 1,
+              0x9000A00000B0000C0D, 0x1F3, 0x2F03, 0x7000F, 1 << 252):
+        got = kernels.fr_pow_fixed(x, e)
+        check(torch.equal(got, kernels.fr_pow_fixed_plain(x, e))
+              and fr.to_ints(got) == [pow(v, e, fh.R) for v in vals],
+              f"fr_pow_fixed exponent {e:#x}")
+    print("fr_pow_fixed at 12 small and awkward exponents: exact")
+    # one Fr product and one square of a lone warp, from the chain: 2^128
+    # is 128 squarings, 2^252 124 more, 2^256 - 1 adds 63 products. Each of
+    # these launches outlasts the host's call, so the events read the card
+    # (exponent 1, the table alone, would read the wrapper's call instead).
+    one = x[3:4].contiguous()
+    t_128, t_sq, t_all = (kernel_ms(lambda: kernels.fr_pow_fixed(one, e), 10)
+                          for e in (1 << 128, 1 << 252, (1 << 256) - 1))
+    print(f"lone warp, Fr, from fr_pow_fixed [1] at exponents 2^128 / 2^252 "
+          f"/ 2^256-1 ({t_128:.4f} / {t_sq:.4f} / {t_all:.4f} ms): one "
+          f"product {(t_all - t_sq) / 63 * 1e3:.3f} us, one square "
+          f"{(t_sq - t_128) / 124 * 1e3:.3f} us")
+
+    # the Fr product's carry chains: every pair of the edge elements and
+    # every raw first operand against every edge element, word for word
+    # against the plain version and Python ints, then random pairs (half
+    # of them with raw first operands) up to 65,536; the square
+    # (fr_pow_fixed at 2) against the product
+    edge, raw = fr_edge_elements(rng)
+    xs = [u for u in edge + raw for _ in edge]
+    ys = [v for _ in edge + raw for v in edge]
+    n_grid = len(xs)
+    xs += [rng.randrange(1 << 256 if i % 2 else fh.R)
+           for i in range(65536 - n_grid)]
+    ys += [rng.randrange(fh.R) for _ in range(65536 - n_grid)]
+    a, b = _raw_fr(xs, dev), _raw_fr(ys, dev)
+    got = kernels.fr_mont_mul(a, b)
+    r_inv = pow(1 << 256, -1, fh.R)
+    check(torch.equal(got, kernels.fr_mont_mul_plain(a, b)),
+          "fr product stress: 65,536 pairs against the plain version")
+    check(_fr_values(got) == [u * v * r_inv % fh.R for u, v in zip(xs, ys)],
+          "fr product stress: 65,536 pairs against Python ints")
+    check(torch.equal(kernels.fr_pow_fixed(b, 2), kernels.fr_mont_mul(b, b)),
+          "fr_pow_fixed(x, 2) == fr_mont_mul(x, x): the square against the "
+          "product")
+    print(f"fr product stress: {len(edge)} edge elements and {len(raw)} raw "
+          f"first operands against every edge element ({n_grid} pairs), "
+          f"{65536 - n_grid} random pairs: exact against the plain version "
+          f"and Python ints; fr_pow_fixed(x, 2) == fr_mont_mul(x, x) on all "
+          f"65,536")
 
     # the Fr multiply: [128] lanes, and [128] lanes by one element
     vals = [0, 1, fh.R - 1] + [rng.randrange(fh.R) for _ in range(125)]
@@ -737,14 +846,59 @@ def phase_kernels_device_prover(dev: torch.device) -> dict:
           and (pos1, pb1) == (hs.pos, hs.pos_begin),
           "strobe_absorb_stream [256 x 48]")
     n_stream = stream.numel()
-    report("strobe_absorb_stream", f"[256 x 48] = {n_stream} bytes, "
-           f"{pbs.numel()} permutations",
+    print(f"strobe_absorb_stream [256 x 48]: {n_stream} bytes, "
+          f"{pbs.numel()} permutations")
+    report("strobe_absorb_stream", "[256 x 48]",
            kernel_ms(lambda: kernels.strobe_absorb_stream(ts.st, stream, pos,
                                                           pbs)),
            cuda_ms(lambda: kernels.strobe_absorb_stream_plain(
                ts.st, stream, pos, pbs), 1),
            bound(400 + n_stream + pbs.numel(), pbs.numel(),
                  KECCAK_INT32_OPS), keep=True)
+
+    # every start position and length that meets an edge of a lane's word
+    # or of the rate (lane 20's word straddles byte 166), with and without
+    # the forced permutation: against the plain version with random
+    # pos_begin bytes, and against the host STROBE with the pos_begin it
+    # would use
+    state = bytes(rng.randrange(256) for _ in range(200))
+    st = strobe_dev.bytes_tensor(state, dev)
+    for start in (0, 1, 7, 8, 159, 160, 165):
+        for n in (0, 1, 5, 6, 166, 167, 1000):
+            data = bytes(rng.randrange(256) for _ in range(n))
+            data_t = torch.tensor(list(data), dtype=torch.uint8, device=dev)
+            n_cross = (start + n) // kernels.STROBE_R
+            pbs_r = torch.tensor([rng.randrange(167) for _ in range(n_cross)],
+                                 dtype=torch.uint8, device=dev)
+            for final_pb in (None, 9):
+                check(torch.equal(
+                    kernels.strobe_absorb_stream(st, data_t, start, pbs_r,
+                                                 final_pb),
+                    kernels.strobe_absorb_stream_plain(st, data_t, start,
+                                                       pbs_r, final_pb)),
+                    f"strobe_absorb_stream from {start}, {n} bytes, "
+                    f"final_pb {final_pb}, against the plain version")
+            hs = Transcript(b"chip_smoke").inner.strobe
+            hs.state[:], hs.pos, hs.pos_begin = state, start, 3
+            pbs_h = torch.tensor([3] + [0] * (n_cross - 1) if n_cross else [],
+                                 dtype=torch.uint8, device=dev)
+            hs._absorb(data)
+            got = kernels.strobe_absorb_stream(st, data_t, start, pbs_h)
+            check(bytes(got.tolist()) == bytes(hs.state),
+                  f"strobe_absorb_stream from {start}, {n} bytes, against "
+                  f"the host STROBE")
+            if hs.pos != 0:
+                final_pb = hs.pos_begin
+                hs._run_f()
+                got = kernels.strobe_absorb_stream(st, data_t, start, pbs_h,
+                                                   final_pb)
+                check(bytes(got.tolist()) == bytes(hs.state),
+                      f"strobe_absorb_stream from {start}, {n} bytes, "
+                      f"forced permutation, against the host STROBE")
+    print("strobe_absorb_stream from positions 0, 1, 7, 8, 159, 160, 165 "
+          "with 0, 1, 5, 6, 166, 167 and 1000 bytes, with and without the "
+          "forced permutation: exact against the plain version and the host "
+          "STROBE")
 
     # a challenge whose first attempt is rejected; every attempt runs one
     # permutation, the final re-absorb stays inside the rate
@@ -1026,11 +1180,9 @@ def phase_device_prover(dev: torch.device, card: str, crs, insts, gv,
         for name, n in counts.items():
             check(n > 0, f"{name} launched by the device prove")
         check_msm_launches(counts, "device prove")
-        check(counts["fr_pow_fixed"] == 17,
-              f"17 Fr inversions at N=128, saw {counts['fr_pow_fixed']}")
-        check(counts["point_x16_add"] == X16_LAUNCHES_DEVICE_PROVE,
-              f"{X16_LAUNCHES_DEVICE_PROVE} point_x16_add launches a device "
-              f"prove, saw {counts['point_x16_add']}")
+        for name, n in DEVICE_PROVE_LAUNCHES.items():
+            check(counts[name] == n, f"{n} {name} launches a device prove, "
+                  f"saw {counts[name]}")
         check(whisk.is_valid_whisk_shuffle_proof(
             crs, pre, post, proof, Rand(11), device=dev),
             "ELL=124 device proof accepted by the verifier")

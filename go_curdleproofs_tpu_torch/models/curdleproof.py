@@ -17,7 +17,7 @@ verification's one device MSM.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import BinaryIO, Dict, List, Sequence, Tuple
+from typing import BinaryIO, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -169,11 +169,18 @@ def prove(crs: CRS, Rs: List[Affine], Ss: List[Affine], Ts: List[Affine],
 
 def verify(proof: Proof, crs: CRS, Rs: List[Affine], Ss: List[Affine],
            Ts: List[Affine], Us: List[Affine], M: Affine, rand: Rand, *,
-           device: torch.device) -> bool:
-    """curdleproof.go:199-318."""
+           device: torch.device,
+           accumulator: Optional[MsmAccumulator] = None) -> bool:
+    """curdleproof.go:199-318.
+
+    accumulator: a caller-owned MsmAccumulator. This proof's deferred checks
+    fold into it and the caller runs the one final MSM (batched
+    verification); True then means that nothing failed before that MSM.
+    Without it a local accumulator is made and verified here."""
     transcript = Transcript(LABEL_TRANSCRIPT)
-    msm_accumulator = MsmAccumulator(device=device,
-                                     static_bases=_gh_static(crs, device))
+    deferred = accumulator is not None
+    msm_accumulator = accumulator if deferred else MsmAccumulator(
+        device=device, static_bases=_gh_static(crs, device))
 
     # reject a zero randomizer that wiped the ciphertexts
     if codec.point_is_infinity(Ts[0]):
@@ -217,6 +224,8 @@ def verify(proof: Proof, crs: CRS, Rs: List[Affine], Ss: List[Affine],
 
     msm_accumulator.accumulate_check(proof.r, as_, Rs, rand)
     msm_accumulator.accumulate_check(proof.s, as_, Ss, rand)
+    if deferred:
+        return True
     return msm_accumulator.verify()
 
 

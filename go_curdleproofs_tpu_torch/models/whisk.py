@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import io
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -103,11 +103,15 @@ class WhiskShuffleProof:
 
     @classmethod
     def from_bytes(cls, data: bytes,
-                   pool: codec.DecodePool) -> "WhiskShuffleProof":
-        """Every point decode defers into `pool`. Trailing bytes (the fixed
-        4576-byte array's zero padding) are ignored."""
+                   pool: Optional[codec.DecodePool] = None
+                   ) -> "WhiskShuffleProof":
+        """With `pool`, every point decode defers into it (one batched
+        device decompression for the whole verification); without, each
+        point decodes on the host. Trailing bytes (the fixed 4576-byte
+        array's zero padding) are ignored."""
         buf = io.BytesIO(data)
-        buf._curdle_pool = pool
+        if pool is not None:
+            buf._curdle_pool = pool
         m = codec.Decoder(buf).read_point()
         return cls(m, curdleproof.Proof.from_reader(buf))
 

@@ -1,8 +1,9 @@
 // The pointwise kernels, written for Hopper (sm_90a): batched Fp multiply,
 // complete point add, complete point double, and the scalar field's batched
-// multiply and fixed-exponent ladder, with a plain C launcher each for
-// ctypes (go_curdleproofs_tpu_torch/ops/kernels.py). The fused 16*acc + sel
-// step is in kernels.cu, on the cooperative point operations.
+// multiply and fixed-exponent ladder (fr.cuh on fr_asm.cuh), with a plain C
+// launcher each for ctypes (go_curdleproofs_tpu_torch/ops/kernels.py). The
+// fused 16*acc + sel step is in kernels.cu, on the cooperative point
+// operations.
 //
 // Every launcher enqueues on the stream it is given, allocates nothing, and
 // returns cudaGetLastError() so that a refused launch reaches the caller.
@@ -124,7 +125,9 @@ point_double_kernel(const Fp* __restrict__ px, const Fp* __restrict__ py,
 // which fuses them into each prover piece. Unfused torch integer ops cost
 // ~60 launches a product, so the device prover's lane algebra ([128] lanes,
 // several products a round) goes through this one. a may be raw words below
-// 2^256 (fr.cuh), which is how values enter and leave Montgomery form.
+// 2^256, which is how values enter and leave Montgomery form: it is brought
+// below r once here (fr_from_raw), so the product itself, fr_asm.cuh's
+// carry-chained PTX (gen_fp_asm.py), takes canonical operands only.
 // Bound: bytes (2 * 64 multiply-adds over 96 bytes), in practice the launch.
 
 __global__ void __launch_bounds__(kMulThreads)
@@ -134,7 +137,8 @@ fr_mont_mul_kernel(const Fr* __restrict__ a, const Fr* __restrict__ b,
   const long long step = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += step) {
-    const Fr x = a[i * a_stride];
+    Fr x;
+    curdle::fr_from_raw(x, a[i * a_stride]);
     const Fr y = b[i * b_stride];
     Fr r;
     curdle::fr_mul(r, x, y);
@@ -147,27 +151,78 @@ fr_mont_mul_kernel(const Fr* __restrict__ a, const Fr* __restrict__ b,
 //
 // Replaces go_curdleproofs_tpu/ops/limb_kernels.py:pow_fixed (the Fr ladder
 // over 33 base-256 f32 limbs with its roll-and-dot multiply, rows padded to
-// 8, at most 1024). Here one thread walks one element's ladder MSB-first on
-// 8-word CIOS products; the exponent words are a kernel argument, so every
-// thread takes the same branch at every bit. Any batch size. 0 maps to 0.
-// Bound: operations in name (~380 dependent products an element for r - 2),
-// but the prover inverts 1 to 8 elements at a time, so one thread's chain of
-// dependent multiply-adds sets the time.
+// 8, at most 1024). Any batch size. 0 maps to 0.
+// Bound: operations in name, but the prover inverts 1 to 8 elements at a
+// time, so one thread's chain of dependent products sets the time. The
+// design is pow_fixed_kernel's (kernels.cu) at 8 words:
+//   * a fixed 4-bit window: x^1..x^15 first (7 squarings, 7 products), then
+//     per nibble of the exponent from the top four squarings and, where the
+//     nibble is not 0, one product with a table entry. The nibble is the
+//     same for every thread (the exponent is a kernel argument), so no warp
+//     diverges; the top nibble is looked up. For r - 2 that is 252
+//     squarings and at most 63 + 7 products against 417 general products
+//     one bit at a time;
+//   * squarings through fr_sqr (36 + 64 wide multiply-adds against 128),
+//     every product on fr_asm.cuh's carry chains;
+//   * the 15 powers of a thread live in dynamic shared memory (480 bytes a
+//     thread), word j of entry k of thread t at [(k * 8 + j) * 32 + t]: the
+//     32 threads of a warp touch 32 neighbouring words, one a bank;
+//   * a block is one warp.
 
 struct FrExponent {
   uint32_t w[curdle::FRW];
 };
 
-__global__ void fr_pow_fixed_kernel(const Fr* __restrict__ x,
-                                    Fr* __restrict__ out, long long n,
-                                    FrExponent e, int nbits) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+constexpr int kFrPowThreads = 32;
+constexpr int kFrPowEntries = 15;
+
+extern __shared__ uint32_t fr_pow_table[];
+
+// Entry k (x^k, k = 1..15) of the calling thread's column of the table.
+__device__ __forceinline__ void fr_pow_store(uint32_t* col, int k,
+                                             const Fr& v) {
+#pragma unroll
+  for (int j = 0; j < curdle::FRW; ++j)
+    col[((k - 1) * curdle::FRW + j) * kFrPowThreads] = v.w[j];
+}
+
+__device__ __forceinline__ void fr_pow_load(Fr& v, const uint32_t* col,
+                                            int k) {
+#pragma unroll
+  for (int j = 0; j < curdle::FRW; ++j)
+    v.w[j] = col[((k - 1) * curdle::FRW + j) * kFrPowThreads];
+}
+
+// `top` is the index of the exponent's highest nibble that is not 0.
+__global__ void __launch_bounds__(kFrPowThreads)
+fr_pow_fixed_kernel(const Fr* __restrict__ x, Fr* __restrict__ out,
+                    long long n, FrExponent e, int top) {
+  const long long i = (long long)blockIdx.x * kFrPowThreads + threadIdx.x;
+  if (i >= n) return;  // a thread touches only its own column: no barrier
+  uint32_t* col = fr_pow_table + threadIdx.x;
   const Fr base = x[i];
-  Fr acc = base;  // the top bit is 1
-  for (int b = nbits - 2; b >= 0; --b) {
-    curdle::fr_mul(acc, acc, acc);
-    if ((e.w[b >> 5] >> (b & 31)) & 1u) curdle::fr_mul(acc, acc, base);
+  fr_pow_store(col, 1, base);
+#pragma unroll 1
+  for (int k = 1; k < 8; ++k) {
+    Fr t;
+    fr_pow_load(t, col, k);
+    curdle::fr_sqr(t, t);
+    fr_pow_store(col, 2 * k, t);
+    curdle::fr_mul(t, t, base);
+    fr_pow_store(col, 2 * k + 1, t);
+  }
+  Fr acc;
+  fr_pow_load(acc, col, (e.w[top >> 3] >> ((top & 7) * 4)) & 15u);
+#pragma unroll 1
+  for (int idx = top - 1; idx >= 0; --idx) {
+#pragma unroll 1
+    for (int s = 0; s < 4; ++s) curdle::fr_sqr(acc, acc);
+    const int d = (e.w[idx >> 3] >> ((idx & 7) * 4)) & 15u;
+    if (d != 0) {
+      Fr t;
+      fr_pow_load(t, col, d);
+      curdle::fr_mul(acc, acc, t);
+    }
   }
   out[i] = acc;
 }
@@ -226,16 +281,20 @@ int curdle_fr_mont_mul(const void* a, const void* b, void* out, long long n,
   return (int)cudaGetLastError();
 }
 
-// `exponent` points to 8 host words.
+// `exponent` points to 8 host words; nbits is its bit length (>= 1).
 int curdle_fr_pow_fixed(const void* x, void* out, long long n,
                         const uint32_t* exponent, int nbits, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
+  if (nbits < 1 || nbits > 32 * curdle::FRW)
+    return (int)cudaErrorInvalidValue;
   FrExponent e;
   for (int j = 0; j < curdle::FRW; ++j) e.w[j] = exponent[j];
-  const int threads = 128;
-  const long long blocks = (n + threads - 1) / threads;
-  fr_pow_fixed_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const Fr*)x, (Fr*)out, n, e, nbits);
+  const size_t table =
+      (size_t)kFrPowEntries * sizeof(Fr) * kFrPowThreads;   // 15 KB
+  const long long blocks = (n + kFrPowThreads - 1) / kFrPowThreads;
+  fr_pow_fixed_kernel<<<(unsigned)blocks, kFrPowThreads, table,
+                        (cudaStream_t)stream>>>(
+      (const Fr*)x, (Fr*)out, n, e, (nbits - 1) >> 2);
   return (int)cudaGetLastError();
 }
 

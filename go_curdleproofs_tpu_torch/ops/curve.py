@@ -425,7 +425,7 @@ class FoldedBases:
             u = u + [s * g % fh.R for s in u]
         d = self.diags.get(row)
         if d is not None:
-            u = [s * di % fh.R
+            u = [s * di % fh.R if di is not None else s
                  for s, di in zip(u, list(d) + [1] * (len(u) - len(d)))]
         return u
 
@@ -451,15 +451,46 @@ def msm_batch(jobs: Sequence[Tuple[Sequence[Affine], Sequence[int]]], *,
     return sv.msm_many([[(j, sc, 0)] for j, (_, sc) in enumerate(jobs)])
 
 
+# An MSM over more than _ROWS_ABOVE fresh bases runs as rows of _ROW_POINTS
+# bases of one table (batched verification reaches ~17k bases): one padded
+# row of a power of two would take up to twice the lanes and the memory.
+_ROWS_ABOVE = 8192
+_ROW_POINTS = 4096
+
+
+def _dynamic_layout(n: int) -> Tuple[int, int]:
+    """(rows, bases a row) of the fresh table of an n-base MSM."""
+    if n <= _ROWS_ABOVE:
+        return 1, _pad_pow2(n)
+    return -(-n // _ROW_POINTS), _ROW_POINTS
+
+
+def _sum_rows(sums: PointVec) -> PointVec:
+    """[k, ...] points -> [1, ...]: a halving tree of adds over the first
+    axis (its slices stay contiguous)."""
+    while sums.x.shape[0] > 1:
+        k = sums.x.shape[0]
+        h = k // 2
+        s = add(pmap(lambda t: t[:h], sums), pmap(lambda t: t[h:2 * h], sums))
+        if k % 2:
+            s = PointVec(*(torch.cat([u, t[2 * h:]]) for u, t in zip(s, sums)))
+        sums = s
+    return sums
+
+
 def _dynamic_windows(points: Sequence[Affine], scalars: Sequence[int],
                      device: torch.device) -> PointVec:
-    """[1, W] window sums of <scalars, points> over a fresh table."""
-    n = _pad_pow2(len(points))
-    pts = list(points) + [None] * (n - len(points))
-    sc = list(scalars) + [0] * (n - len(scalars))
-    sv = StackedVec.from_affine([pts], device=device, pad_to=n)
-    digits = _digits(scalars_to_digits(sc)[None], device)      # [1, 2n, W]
-    return msm_rows_windows_from_table(sv.table(), digits, [0])
+    """[1, W] window sums of <scalars, points> over a fresh table: each
+    row's sums in one wide-phase launch, added pointwise."""
+    k, w = _dynamic_layout(len(points))
+    pts = list(points) + [None] * (k * w - len(points))
+    sc = list(scalars) + [0] * (k * w - len(scalars))
+    sv = StackedVec.from_affine([pts[i * w:(i + 1) * w] for i in range(k)],
+                                device=device, pad_to=w)
+    digits = _digits(np.stack([scalars_to_digits(sc[i * w:(i + 1) * w])
+                               for i in range(k)]), device)    # [k, 2w, W]
+    return _sum_rows(msm_rows_windows_from_table(sv.table(), digits,
+                                                 list(range(k))))
 
 
 def msm(points: Sequence[Affine], scalars: Sequence[int], *,

@@ -5,8 +5,8 @@ point_add, point_double, fr_mont_mul and fr_pow_fixed, ops/csrc/kernels.cu
 holds pow_fixed, windowed_combine, msm_select_reduce and point_x16_add,
 the last three on the cooperative point operations of
 ops/csrc/point_coop.cuh, ops/csrc/transcript.cu holds strobe_absorb_stream
-and strobe_challenge32; the Fp arithmetic of all of them is
-ops/csrc/fp_asm.cuh, written by ops/csrc/gen_fp_asm.py) has
+and strobe_challenge32; the Fp and Fr arithmetic of all of them is
+ops/csrc/fp_asm.cuh and fr_asm.cuh, written by ops/csrc/gen_fp_asm.py) has
 
   * a wrapper that checks its tensors and, for CUDA tensors, launches the
     kernel on PyTorch's current stream, raising if the launch is refused;
@@ -43,7 +43,8 @@ from . import curve, fp, fr, keccak_dev
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _CU_SOURCES = ("kernels.cu", "pointwise.cu", "transcript.cu")  # a library each
-_SOURCES = ("fp.cuh", "fp_asm.cuh", "fr.cuh", "point_coop.cuh") + _CU_SOURCES
+_SOURCES = ("fp.cuh", "fp_asm.cuh", "fr.cuh", "fr_asm.cuh",
+            "point_coop.cuh") + _CU_SOURCES
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

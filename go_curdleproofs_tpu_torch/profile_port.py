@@ -16,7 +16,8 @@ given:
     inside them counted apart), and the rest, which is host work:
     transcript, Fr arithmetic, single-point group operations;
   * from torch.profiler over the same number of runs: CUDA kernel launches
-    per run, device time per run and the device-busy share of the wall time.
+    per run, device time per run and the device-busy share of the wall time,
+    and the device time of the top 8 kernels and of each of the port's own.
 
 The section clocks add a synchronise per section, so the sections are timed
 in their own runs, apart from the wall-time runs.
@@ -187,7 +188,7 @@ def profile_device_prove(name: str, fn) -> dict:
     cuda_events = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in cuda_events) / 1e3
-    top = sorted(cuda_events, key=lambda e: -e.self_device_time_total)[:8]
+    top = _top_kernels(cuda_events)
     res = dict(
         wall_ms_median=statistics.median(walls), wall_ms_min=min(walls),
         wall_ms_max=max(walls),
@@ -207,6 +208,15 @@ def profile_device_prove(name: str, fn) -> dict:
     print(f"== {name}")
     print(json.dumps(res, indent=1))
     return res
+
+
+def _top_kernels(cuda_events):
+    """The 8 kernels with the most device time, and each of the port's own
+    kernels beside them."""
+    ranked = sorted(cuda_events, key=lambda e: -e.self_device_time_total)
+    own = tuple(f"{name}_kernel" for name in kernels.KERNEL_NAMES)
+    return [e for i, e in enumerate(ranked)
+            if i < 8 or any(k in e.key for k in own)]
 
 
 def _wall_ms(fn):
@@ -232,7 +242,7 @@ def profile(name: str, fn) -> dict:
                    if e.device_type == torch.autograd.DeviceType.CUDA]
     n_kernels = sum(e.count for e in cuda_events)
     device_ms = sum(e.self_device_time_total for e in cuda_events) / 1e3
-    top = sorted(cuda_events, key=lambda e: -e.self_device_time_total)[:8]
+    top = _top_kernels(cuda_events)
     sections = {k: dict(ms_per_run=v / REPS, calls_per_run=clock.calls[k]
                         / REPS) for k, v in clock.ms.items()}
     outer = sum(v["ms_per_run"] for k, v in sections.items()

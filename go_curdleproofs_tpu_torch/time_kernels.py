@@ -1,7 +1,9 @@
-"""Device times of the port's Fp kernels at the main paths' shapes, for
+"""Device times of the port's kernels at the main paths' shapes, for
 comparing two checkouts on one card: mont_mul (B1), point_x16_add (B4, both
 load stages, and the window loop on it), windowed_combine (B5),
-msm_select_reduce (B6) and pow_fixed (B7).
+msm_select_reduce (B6), pow_fixed (B7), and the device prover's
+fr_pow_fixed (B8), fr_mont_mul, strobe_absorb_stream and
+strobe_challenge32.
 
     python3 go_curdleproofs_tpu_torch/time_kernels.py [--root CHECKOUT]
                                         [--splits] [--threads] [--sass]
@@ -19,7 +21,12 @@ select stage of point_x16_add) is left out with a note.
 The lone-warp times of one Fp product and one square are read from
 pow_fixed on one element: exponent 2^380 is squarings only, 2^384 - 1 adds
 a product to every nibble (or, one bit a step, to every bit), exponent 1
-is the launch and whatever a ladder does before its first step.
+is the launch and whatever a ladder does before its first step. A launch
+that ends before the host's next call reads the wrapper, not the card, so
+the square is also read between two long chains, 2^192 and 2^380 (188
+squarings). The Fr product and square are read the same way from
+fr_pow_fixed: 2^128 (128 squarings), 2^252 (124 more), 2^256 - 1 (63 more
+products).
 
 --splits also sweeps the number of blocks that share one job's lanes in
 msm_select_reduce (the wrapper's private `_split`), which is how the
@@ -27,7 +34,8 @@ wrapper's choice (`kernels._msm_split`) was made. --threads sweeps
 pow_fixed's threads a block (the wrapper's private `_threads`) and fills
 the card with one and with two blocks an SM, which shows whether a lone
 warp leaves its scheduler idle. --sass counts the instructions of every
-kernel in the built libraries with cuobjdump. Each needs a checkout whose
+kernel in the built libraries with cuobjdump (fr_mont_mul_kernel is one Fr
+product with its loads and stores). Each needs a checkout whose
 wrapper has that argument.
 
 Inputs are made from a fixed seed: distinct subgroup points, uniform digits
@@ -45,6 +53,22 @@ SHAPES_B6 = [(6, 256), (1, 256), (1, 2048)]         # (jobs, lanes)
 SHAPES_B6_SWEEP = [(1, 256), (3, 256), (6, 256), (1, 512), (1, 2048)]
 ROWS_B5 = [1, 6, 7, 2048]
 SPLITS = (1, 2, 4, 8, 16)
+
+
+def kernel_ms(fn, launches=20):
+    """Device time of one fn() in ms: CUDA events around `launches` calls
+    after a warm-up call."""
+    import torch
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / launches
 
 
 def main() -> int:
@@ -71,18 +95,6 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"{os.path.abspath(args.root)} on {card}")
-
-    def kernel_ms(fn, launches=20):
-        fn()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        for _ in range(launches):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / launches
 
     rng = random.Random(2024)
     gen = torch.Generator().manual_seed(2024)
@@ -142,14 +154,16 @@ def main() -> int:
         ms = kernel_ms(lambda: kernels.pow_fixed(part, e), 10)
         print(f"pow_fixed [{n}] {what}: {ms:.4f} ms", flush=True)
     one = x[:1].contiguous()
-    t_1, t_sq, t_all = (kernel_ms(lambda: kernels.pow_fixed(one, e), 10)
-                        for e in (1, 1 << 380, (1 << 384) - 1))
-    print(f"pow_fixed [1]: exponent 1 {t_1:.4f} ms, 2^380 {t_sq:.4f} ms, "
-          f"2^384-1 {t_all:.4f} ms", flush=True)
+    t_1, t_192, t_sq, t_all = (
+        kernel_ms(lambda: kernels.pow_fixed(one, e), 10)
+        for e in (1, 1 << 192, 1 << 380, (1 << 384) - 1))
+    print(f"pow_fixed [1]: exponent 1 {t_1:.4f} ms, 2^192 {t_192:.4f} ms, "
+          f"2^380 {t_sq:.4f} ms, 2^384-1 {t_all:.4f} ms", flush=True)
     if hasattr(kernels, "point_x16_add_select"):    # the 4-bit window
         print(f"lone warp: product {(t_all - t_sq) / 95 * 1e3:.3f} us (95 "
               f"more products), square {(t_sq - t_1) / 380 * 1e3:.3f} us "
-              f"(380 more squarings)")
+              f"(380 more squarings), {(t_sq - t_192) / 188 * 1e3:.3f} us "
+              f"between 2^192 and 2^380")
     else:                                           # one bit a step
         print(f"lone warp: product {(t_sq - t_1) / 380 * 1e3:.3f} us (380 "
               f"more products used as squarings; 2^384-1 adds 386: "
@@ -196,9 +210,58 @@ def main() -> int:
               f"{cells[0]} ms, one windowed_combine launch {cells[1]} ms",
               flush=True)
 
+    device_prover_kernels(kernels, dev, rng)
     if args.sass:
         sass_counts(kernels)
     return 0
+
+
+def device_prover_kernels(kernels, dev, rng) -> None:
+    """B8 at the device prover's batches, the lone-warp Fr product and
+    square, fr_mont_mul, and the transcript kernels at the same-multiscalar
+    step's stream ([256 x 48] from position 41: 108 permutations)."""
+    import torch
+    from go_curdleproofs_tpu_torch.ops import fr
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
+
+    x = fr.from_ints([rng.randrange(fh.R) for _ in range(128)], dev)
+    for n in (8, 1):
+        part = x[:n].contiguous()
+        ms = kernel_ms(lambda: kernels.fr_pow_fixed(part, fh.R - 2))
+        print(f"fr_pow_fixed [{n}] exponent r-2: {ms:.4f} ms", flush=True)
+    one = x[:1].contiguous()
+    t_1, t_128, t_sq, t_all = (
+        kernel_ms(lambda: kernels.fr_pow_fixed(one, e), 10)
+        for e in (1, 1 << 128, 1 << 252, (1 << 256) - 1))
+    print(f"fr_pow_fixed [1]: exponent 1 {t_1:.4f} ms, 2^128 {t_128:.4f} ms, "
+          f"2^252 {t_sq:.4f} ms, 2^256-1 {t_all:.4f} ms", flush=True)
+    if "fr_asm.cuh" in kernels._SOURCES:               # the 4-bit window
+        print(f"lone warp, Fr: product {(t_all - t_sq) / 63 * 1e3:.3f} us "
+              f"(63 more products), square "
+              f"{(t_sq - t_128) / 124 * 1e3:.3f} us (124 more squarings)")
+    else:                                              # one bit a step
+        print(f"lone warp, Fr: product {(t_sq - t_128) / 124 * 1e3:.3f} us "
+              f"(124 more products used as squarings)")
+    y = x.flip(0).contiguous()
+    ms = kernel_ms(lambda: kernels.fr_mont_mul(x, y))
+    print(f"fr_mont_mul [128]: {ms:.4f} ms", flush=True)
+
+    gen = torch.Generator().manual_seed(2026)
+    state = torch.randint(0, 256, (200,), generator=gen,
+                          dtype=torch.uint8).to(dev)
+    pos, n = 41, 256 * 48 + 256 * 22     # rows with their message headers
+    stream = torch.randint(0, 256, (n,), generator=gen,
+                           dtype=torch.uint8).to(dev)
+    pbs = torch.randint(0, 167, ((pos + n) // kernels.STROBE_R,),
+                        generator=gen, dtype=torch.uint8).to(dev)
+    ms = kernel_ms(lambda: kernels.strobe_absorb_stream(state, stream, pos,
+                                                        pbs), 10)
+    print(f"strobe_absorb_stream {n} bytes from position {pos}: {ms:.4f} ms, "
+          f"{pbs.numel()} permutations, {ms / pbs.numel() * 1e3:.3f} us a "
+          f"permutation", flush=True)
+    ms = kernel_ms(lambda: kernels.strobe_challenge32(state, b"ipa_gamma",
+                                                      pos, 3))
+    print(f"strobe_challenge32 from position {pos}: {ms:.4f} ms", flush=True)
 
 
 def sass_counts(kernels) -> None:
@@ -214,14 +277,16 @@ def sass_counts(kernels) -> None:
         name, counts = None, {}
         for line in out.splitlines():
             if "Function :" in line:
-                # the longest kernel name in the mangled one
-                name = [n for n in names if n + "_kernel" in line][-1]
+                # the longest kernel name in the mangled one; a device
+                # function that is not inlined keeps its mangled name
+                hits = [n + "_kernel" for n in names if n + "_kernel" in line]
+                name = hits[-1] if hits else line.split(":", 1)[1].strip()
                 counts[name] = [0, 0]
             elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line):
                 counts[name][0] += 1
                 counts[name][1] += "IMAD.WIDE" in line
         for name, (n, wide) in counts.items():
-            print(f"{lib.name} {name}_kernel: {n} SASS instructions, "
+            print(f"{lib.name} {name}: {n} SASS instructions, "
                   f"{wide} of them IMAD.WIDE")
 
 

@@ -227,6 +227,65 @@ def test_folded_bases_folds_and_diags_match_oracle_and_jax():
                                                            sc + sc)]
 
 
+def test_folded_bases_skips_none_diagonal_entries():
+    """A None entry of a diagonal leaves its lane as it is, as the JAX
+    package's FoldedBases does: diags {0: [2, None]} gives 2 s0 and s1."""
+    rng = np.random.default_rng(36)
+    g = _pts(rng, 2)
+    s0, s1 = _scalar(rng), _scalar(rng)
+    sv = curve.StackedVec.from_affine([g], device=CPU)
+    fb = curve.FoldedBases(sv, rows=[0], diags={0: [2, None]})
+    assert fb._expand(0, [s0, s1], 0)[:2] == [2 * s0 % fh.R, s1]
+    want = fh.g1_add(fh.g1_mul(g[0], 2 * s0 % fh.R), fh.g1_mul(g[1], s1))
+    assert fb.msm_many([[(0, [s0, s1], 0)]]) == [want]
+    jfb = jcurve.FoldedBases(jcurve.StackedVec.from_affine([g]), rows=[0],
+                             diags={0: [2, None]})
+    assert jfb.msm_many([[(0, [s0, s1], 0)]]) == [want]
+
+
+def test_wide_msm_runs_in_rows_of_4096(monkeypatch):
+    """Above 8,192 bases an MSM takes rows of 4,096 bases of one table
+    (8,200 bases: 3 rows, 24,576 GLV lanes where one row padded to a power
+    of two took 32,768); every row's window sums are added before the one
+    Horner. Up to 8,192 bases (every ELL=124 path) one row as before."""
+    assert curve._dynamic_layout(590) == (1, 1024)
+    assert curve._dynamic_layout(8192) == (1, 8192)
+    assert curve._dynamic_layout(8193) == (3, 4096)
+    assert curve._dynamic_layout(17000) == (5, 4096)
+    seen = []
+
+    def no_table(self):
+        seen.append(tuple(self.pv.x.shape[:2]))
+        return None
+
+    def windows(table, digits, rows):
+        seen.append((tuple(digits.shape), list(rows)))
+        return curve.infinity((len(rows), curve.NUM_WINDOWS), device=CPU)
+
+    monkeypatch.setattr(curve.StackedVec, "table", no_table)
+    monkeypatch.setattr(curve, "msm_rows_windows_from_table", windows)
+    pts = [fh.G1_GEN] * 8200
+    sums = curve._dynamic_windows(pts, list(range(8200)), CPU)
+    assert seen == [(3, 4096), ((3, 2 * 4096, curve.NUM_WINDOWS), [0, 1, 2])]
+    assert tuple(sums.x.shape) == (1, curve.NUM_WINDOWS, 12)
+    assert 2 * 3 * 4096 == 24576 < 2 * curve._pad_pow2(8200) == 32768
+
+
+@pytest.mark.slow
+def test_wide_msm_rows_match_oracle():
+    """An MSM of 8,200 bases (three rows) on the plain versions against
+    the host oracle."""
+    rng = np.random.default_rng(37)
+    n = 8200
+    p, step = _pts(rng, 2)
+    pts = []
+    for _ in range(n):
+        pts.append(p)
+        p = fh.g1_add(p, step)
+    scs = [_scalar(rng) for _ in range(n)]
+    assert curve.msm(pts, scs, device=CPU) == fh.g1_msm(pts, scs)
+
+
 def test_msm_batch_matches_oracle_and_jax():
     rng = np.random.default_rng(34)
     jobs = [(_pts(rng, 3), [_scalar(rng) for _ in range(3)]),

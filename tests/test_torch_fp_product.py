@@ -13,6 +13,9 @@ shows on rare words only, so the inputs are an edge grid (every pair of ~40
 elements) and 2,000 seeded random pairs. Results are compared with Python
 ints: a * b / 2^384 mod p, below p. Tolerance 0.
 
+tests/test_torch_fr_product.py runs fr_asm.cuh through the same
+interpreter (`run_program`, `_parse`, `window_ladder`).
+
 The ladder model repeats pow_fixed_kernel's schedule (15 powers by 7
 squarings and 7 products, nibbles from the top, zero nibbles skipped)
 against pow(x, e, p), on plain ints for every exponent of the list and on
@@ -84,11 +87,18 @@ def run(name, *inputs, wrap_last=False):
     """Executes one function of fp_asm.cuh on integer inputs; returns the
     integer its 12 output words hold. `wrap_last`: the last instruction may
     carry out of its word (fp_sub's add of p undoes a borrow that way)."""
-    prog = PROGRAMS[name]
+    return run_program(PROGRAMS[name], NW, *inputs, wrap_last=wrap_last,
+                       name=name)
+
+
+def run_program(prog, nw, *inputs, wrap_last=False, name=""):
+    """Executes the parsed text of one generated function whose operands
+    are `nw` words each (outputs %0.., then each input's words); returns
+    the integer its output words hold."""
     regs = {}
     for k, v in enumerate(inputs):
-        for j, w in enumerate(_words(v)):
-            regs[f"%{NW * (k + 1) + j}"] = w
+        for j in range(nw):
+            regs[f"%{nw * (k + 1) + j}"] = (v >> (32 * j)) & MASK
     carry = 0          # the flag
     unread = False     # it holds a carry no instruction has taken up yet
 
@@ -148,7 +158,7 @@ def run(name, *inputs, wrap_last=False):
         assert isinstance(regs[dst], bool) or 0 <= regs[dst] <= MASK
     if unread:
         raise CarryError(f"{name}: a carry is left in the flag at the end")
-    return _value([regs[f"%{j}"] for j in range(NW)])
+    return _value([regs[f"%{j}"] for j in range(nw)])
 
 
 # -- inputs ---------------------------------------------------------------------
@@ -186,8 +196,8 @@ INPUTS = {"edge grid": EDGE_PAIRS, "random": random_pairs()}
 
 def test_header_is_what_the_generator_writes():
     gen = _generator()
-    assert (CSRC / "fp_asm.cuh").read_text() == gen.render()
-    assert gen.P == P and gen.M0 == (-pow(P, -1, 1 << 32)) & MASK
+    assert (CSRC / "fp_asm.cuh").read_text() == gen.render(gen.FP)
+    assert gen.FP.p == P and gen.FP.m0 == (-pow(P, -1, 1 << 32)) & MASK
     assert set(PROGRAMS) == {"fp_mul_words", "fp_sqr_words", "fp_add_words",
                              "fp_sub_words"}
 
@@ -255,9 +265,10 @@ def test_instruction_counts():
 
 # -- the windowed ladder ----------------------------------------------------------
 
-def window_ladder(x, e, mul, sqr):
-    """pow_fixed_kernel's schedule; returns (x^e, squarings, products)."""
-    assert 1 <= e < 1 << 384
+def window_ladder(x, e, mul, sqr, bits=384):
+    """pow_fixed_kernel's schedule (and fr_pow_fixed_kernel's, at bits
+    256); returns (x^e, squarings, products)."""
+    assert 1 <= e < 1 << bits
     n_sqr = n_mul = 0
     table = [None, x]                       # table[k] = x^k, k = 1..15
     for k in range(1, 8):

@@ -166,16 +166,16 @@ def test_glv_split_digits_match_jax_and_host(case):
 
 
 def test_fr_cuda_constants_match_field():
-    """fr.cuh's r, -r^-1 mod 2^32 and R mod r (the card compiles them; here
-    they are read back and checked)."""
-    src = (Path(kernels.__file__).parent / "csrc" / "fr.cuh").read_text()
-
-    def words(name):
-        body = re.search(name + r"\[FRW\] = \{([^}]*)\}", src).group(1)
-        ws = [int(w.strip().rstrip("u"), 16) for w in body.split(",")]
-        return sum(w << (32 * i) for i, w in enumerate(ws))
-
-    assert words("kR") == R
-    assert words("kFrOne") == (1 << 256) % R
-    rinv = int(re.search(r"kRInv = (0x[0-9a-f]+)u", src).group(1), 16)
+    """The immediates of fr_asm.cuh, which fr.cuh wraps: r's words and
+    -r^-1 mod 2^32 (the card compiles them; here they are read back and
+    checked)."""
+    csrc = Path(kernels.__file__).parent / "csrc"
+    assert '#include "fr_asm.cuh"' in (csrc / "fr.cuh").read_text()
+    asm = (csrc / "fr_asm.cuh").read_text()
+    rinvs = set(re.findall(r"mul\.lo\.u32 mi, \w+, (0x[0-9a-f]+);", asm))
+    assert len(rinvs) == 1
+    rinv = int(rinvs.pop(), 16)
     assert (rinv * R) % (1 << 32) == (1 << 32) - 1
+    r_words = {(R >> (32 * j)) & 0xFFFFFFFF for j in range(8)}
+    assert {int(h, 16) for h in re.findall(r"0x[0-9a-f]{8}", asm)} \
+        == r_words | {rinv}

@@ -90,6 +90,18 @@ def test_deep_fold_tamper_rejected():
                                   device=CPU)
 
 
+def test_whisk_proof_from_bytes_without_a_pool():
+    """With no DecodePool every point decodes on the host, as the JAX
+    package's from_bytes(data) does."""
+    crs, Rs, Ss, Ts, Us, M, proof = _golden_ell12()
+    data = whisk.WhiskShuffleProof(M, proof).serialize()
+    got = whisk.WhiskShuffleProof.from_bytes(data)
+    assert got.m == M and isinstance(got.proof.a, tuple)
+    assert got.serialize() == data
+    assert curdleproof.verify(got.proof, crs, Rs, Ss, Ts, Us, M, Rand(3),
+                              device=CPU)
+
+
 def _golden_whisk_pre(vec):
     r = Rand(vec["tracker_seed"])
     pre = []

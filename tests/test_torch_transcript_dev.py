@@ -49,42 +49,249 @@ def test_f1600_matches_jax_and_host_keccak():
     assert kernels.f1600_plain is keccak_dev.f1600
 
 
+CU_SOURCE = (Path(kernels.__file__).parent / "csrc"
+             / "transcript.cu").read_text()
+M32 = 0xFFFFFFFF
+M64 = (1 << 64) - 1
+
+
+def _cu_table(name):
+    body = re.search(name + r"\[\d+\] = \{([^}]*)\}", CU_SOURCE).group(1)
+    return [int(w.strip().rstrip("ul"), 0) for w in body.split(",")]
+
+
+RC, RHO, PI_SRC = _cu_table("kRC"), _cu_table("kRho"), _cu_table("kPiSrc")
+
+
 def test_transcript_cu_tables_are_keccak():
-    """transcript.cu's round constants, rotations and lane cycle (the card
-    compiles them; here they are read back and run as Python ints against
-    the host permutation), and its copy of r."""
-    src = (Path(kernels.__file__).parent / "csrc"
-           / "transcript.cu").read_text()
-
-    def table(name):
-        body = re.search(name + r"\[\d+\] = \{([^}]*)\}", src).group(1)
-        return [int(w.strip().rstrip("ul"), 0) for w in body.split(",")]
-
-    rc, rotc, piln = table("kRC"), table("kRotc"), table("kPiln")
-    assert bytes(table("kRBytesBE")) == fh.R.to_bytes(32, "big")
-    m64 = (1 << 64) - 1
-    rotl = lambda x, n: ((x << n) | (x >> (64 - n))) & m64
+    """transcript.cu's round constants, per-lane rotations and pi sources
+    (the card compiles them; here they are read back and run on 25 state
+    lanes as Python ints against the host permutation), and its copy of
+    r."""
+    assert bytes(_cu_table("kRBytesBE")) == fh.R.to_bytes(32, "big")
+    assert sorted(PI_SRC) == list(range(25)) and len(RHO) == 25
+    rotl = lambda x, n: ((x << n) | (x >> (64 - n))) & M64 if n else x
     state = random.Random(2).randbytes(200)
     a = [int.from_bytes(state[8 * i:8 * i + 8], "little") for i in range(25)]
-    for rnd in range(24):                    # the kernel's loop, line by line
-        bc = [a[i] ^ a[i + 5] ^ a[i + 10] ^ a[i + 15] ^ a[i + 20]
-              for i in range(5)]
-        for i in range(5):
-            t = bc[(i + 4) % 5] ^ rotl(bc[(i + 1) % 5], 1)
-            for j in range(0, 25, 5):
-                a[j + i] ^= t
-        t = a[1]
-        for i in range(24):
-            j = piln[i]
-            a[j], t = rotl(t, rotc[i]), a[j]
-        for j in range(0, 25, 5):
-            bc = a[j:j + 5]
-            for i in range(5):
-                a[j + i] ^= (~bc[(i + 1) % 5]) & bc[(i + 2) % 5] & m64
-        a[0] ^= rc[rnd]
+    for rnd in range(24):
+        c = [a[x] ^ a[x + 5] ^ a[x + 10] ^ a[x + 15] ^ a[x + 20]
+             for x in range(5)]
+        a = [v ^ c[(i + 4) % 5] ^ rotl(c[(i + 1) % 5], 1)
+             for i, v in enumerate(a)]
+        b = [rotl(v, RHO[i]) for i, v in enumerate(a)]
+        b = [b[PI_SRC[i]] for i in range(25)]
+        a = [b[i] ^ (~b[(i % 5 + 1) % 5 + i - i % 5] & M64
+                     & b[(i % 5 + 2) % 5 + i - i % 5]) for i in range(25)]
+        a[0] ^= RC[rnd]
     want = bytearray(state)
     keccak.f1600(want)
     assert b"".join(v.to_bytes(8, "little") for v in a) == bytes(want)
+
+
+# -- a model of the warp: 32 lanes, 32-bit halves, shuffles ----------------------
+
+def _shfl(vals, src):
+    """__shfl_sync over the warp: lane i reads vals[src[i] % 32]."""
+    return [vals[s % 32] for s in src]
+
+
+def _funnel_l(lo, hi, s):
+    """__funnelshift_l(lo, hi, s): the high word of hi:lo << (s & 31)."""
+    s &= 31
+    return ((hi << s) | (lo >> (32 - s))) & M32 if s else hi
+
+
+def _lanes():
+    """lane_consts() of transcript.cu for every warp lane."""
+    out = []
+    for lane in range(32):
+        i = lane if lane < 25 else 0
+        x, y = i % 5, i // 5
+        out.append(dict(lane=lane, xm1=(x + 4) % 5, xp1=(x + 1) % 5,
+                        c1=(x + 1) % 5 + 5 * y, c2=(x + 2) % 5 + 5 * y,
+                        pi=PI_SRC[i], swap=RHO[i] >= 32, rot=RHO[i] & 31))
+    return out
+
+
+LANES = _lanes()
+
+
+def warp_f1600(lo, hi):
+    """keccak_f1600_warp, statement by statement, on 32 lanes."""
+    col = lambda k: [ln[k] for ln in LANES]
+    me = col("lane")
+    for rnd in range(24):
+        pl = [u ^ v for u, v in zip(lo, _shfl(lo, [i + 5 for i in me]))]
+        ph = [u ^ v for u, v in zip(hi, _shfl(hi, [i + 5 for i in me]))]
+        pl = [u ^ v for u, v in zip(pl, _shfl(pl, [i + 10 for i in me]))]
+        ph = [u ^ v for u, v in zip(ph, _shfl(ph, [i + 10 for i in me]))]
+        pl = [u ^ v for u, v in zip(pl, _shfl(lo, [i + 20 for i in me]))]
+        ph = [u ^ v for u, v in zip(ph, _shfl(hi, [i + 20 for i in me]))]
+        ml, mh = _shfl(pl, col("xm1")), _shfl(ph, col("xm1"))
+        nl, nh = _shfl(pl, col("xp1")), _shfl(ph, col("xp1"))
+        lo = [v ^ a ^ _funnel_l(c, b, 1)
+              for v, a, b, c in zip(lo, ml, nl, nh)]
+        hi = [v ^ a ^ _funnel_l(b, c, 1)
+              for v, a, b, c in zip(hi, mh, nl, nh)]
+        sl = [h if ln["swap"] else v for v, h, ln in zip(lo, hi, LANES)]
+        sh = [v if ln["swap"] else h for v, h, ln in zip(lo, hi, LANES)]
+        lo = _shfl([_funnel_l(b, a, ln["rot"])
+                    for a, b, ln in zip(sl, sh, LANES)], col("pi"))
+        hi = _shfl([_funnel_l(a, b, ln["rot"])
+                    for a, b, ln in zip(sl, sh, LANES)], col("pi"))
+        al, ah = _shfl(lo, col("c1")), _shfl(hi, col("c1"))
+        bl, bh = _shfl(lo, col("c2")), _shfl(hi, col("c2"))
+        lo = [v ^ (~a & M32 & b) for v, a, b in zip(lo, al, bl)]
+        hi = [v ^ (~a & M32 & b) for v, a, b in zip(hi, ah, bh)]
+        lo[0] ^= RC[rnd] & M32
+        hi[0] ^= RC[rnd] >> 32
+    return lo, hi
+
+
+def _to_lanes(state):
+    lo = [int.from_bytes(state[8 * i:8 * i + 4], "little") if i < 25 else 0
+          for i in range(32)]
+    hi = [int.from_bytes(state[8 * i + 4:8 * i + 8], "little")
+          if i < 25 else 0 for i in range(32)]
+    return lo, hi
+
+
+def _from_lanes(lo, hi):
+    return b"".join(lo[i].to_bytes(4, "little") + hi[i].to_bytes(4, "little")
+                    for i in range(25))
+
+
+def test_warp_lane_model_is_keccak():
+    """The warp's round, 32 lanes with shuffles by transcript.cu's tables
+    (lanes 25-31 along), against the plain version, the JAX package's
+    f1600 and the host Keccak."""
+    rng = random.Random(8)
+    for state in (bytes(200), rng.randbytes(200), bytes([255]) * 200):
+        want = bytearray(state)
+        keccak.f1600(want)
+        assert _from_lanes(*warp_f1600(*_to_lanes(state))) == bytes(want)
+        plain = kernels.f1600_plain(torch.tensor(list(state),
+                                                 dtype=torch.uint8))
+        assert bytes(plain.tolist()) == bytes(want)
+        jst = jnp.asarray(np.frombuffer(state, np.uint8).astype(np.int32))
+        jout = jkeccak_dev.f1600(jst.reshape(25, 8)).reshape(200)
+        assert bytes(np.asarray(jout).astype(np.uint8)) == bytes(want)
+
+
+def absorb_lane_model(state, stream, pos, pbs, final_pb=None):
+    """strobe_absorb_stream_kernel, statement by statement: each lane XORs
+    its 8 bytes of a block as two words, run_f's bytes go to the lanes
+    that hold them, the permutation is the warp model."""
+    lo, hi = _to_lanes(state)
+    n = len(stream)
+
+    def load_block(src_off, s0, s1):
+        out = []
+        for lane in range(32):
+            bs = [stream[src_off + k - s0] if s0 <= k < s1 else 0
+                  for k in range(8 * lane, 8 * lane + 8)]
+            out.append((int.from_bytes(bytes(bs[:4]), "little"),
+                        int.from_bytes(bytes(bs[4:]), "little")))
+        return out
+
+    def run_f(lo, hi, p, pb):
+        for k, v in ((p, pb), (p + 1, 0x04), (167, 0x80)):
+            lane, b = k >> 3, (k & 7) * 8
+            if b < 32:
+                lo[lane] ^= v << b
+            else:
+                hi[lane] ^= v << (b - 32)
+        return warp_f1600(lo, hi)
+
+    crossings = (pos + n) // 166
+    off = crossing = 0
+    take = min(166 - pos, n)
+    nxt = load_block(0, pos, pos + take)
+    pb_next = pbs[0] if crossings else 0
+    while off < n:
+        lo = [v ^ w[0] for v, w in zip(lo, nxt)]
+        hi = [v ^ w[1] for v, w in zip(hi, nxt)]
+        pos += take
+        off += take
+        if pos == 166:
+            pb = pb_next
+            crossing += 1
+            pb_next = pbs[crossing] if crossing < crossings else 0
+            take = min(166, n - off)
+            nxt = load_block(off, 0, take)
+            lo, hi = run_f(lo, hi, 166, pb)
+            pos = 0
+    if final_pb is not None and pos != 0:
+        lo, hi = run_f(lo, hi, pos, final_pb)
+    return _from_lanes(lo, hi)
+
+
+ABSORB_STARTS = (0, 1, 7, 8, 159, 160, 165)
+ABSORB_LENGTHS = (0, 1, 5, 6, 166, 167, 1000)
+
+
+@pytest.mark.parametrize("start", ABSORB_STARTS)
+def test_absorb_lane_model_matches_plain_and_host(start):
+    """The kernel's block loop on lanes at every start position against
+    the plain version (random pos_begin bytes) and the host STROBE (the
+    pos_begin it would use), with and without the forced permutation."""
+    rng = random.Random(start)
+    state = rng.randbytes(200)
+    for n in ABSORB_LENGTHS:
+        data = rng.randbytes(n)
+        n_cross = (start + n) // 166
+        pbs = [rng.randrange(167) for _ in range(n_cross)]
+        st_t = torch.tensor(list(state), dtype=torch.uint8)
+        data_t = torch.tensor(list(data), dtype=torch.uint8)
+        for final_pb in (None, 9):
+            want = kernels.strobe_absorb_stream_plain(
+                st_t, data_t, start, torch.tensor(pbs, dtype=torch.uint8),
+                final_pb)
+            assert absorb_lane_model(state, data, start, pbs, final_pb) \
+                == bytes(want.tolist()), (n, final_pb)
+        host = Transcript(b"x").inner.strobe
+        host.state[:], host.pos, host.pos_begin = state, start, 3
+        host_pbs = [3] + [0] * (n_cross - 1) if n_cross else []
+        host._absorb(data)
+        got = absorb_lane_model(state, data, start, host_pbs)
+        assert got == bytes(host.state)
+        if host.pos != 0:
+            final_pb = host.pos_begin
+            host._run_f()
+            assert absorb_lane_model(state, data, start, host_pbs,
+                                     final_pb) == bytes(host.state)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", ABSORB_STARTS)
+def test_cuda_absorb_stream_at_every_start(cuda_device, start):
+    """The warp kernel on the card at every start and length, with and
+    without the forced permutation, against the plain version and the
+    lane model."""
+    rng = random.Random(start)
+    state = rng.randbytes(200)
+    st = torch.tensor(list(state), dtype=torch.uint8, device=cuda_device)
+    for n in ABSORB_LENGTHS:
+        data = rng.randbytes(n)
+        pbs = [rng.randrange(167) for _ in range((start + n) // 166)]
+        data_t = torch.tensor(list(data), dtype=torch.uint8,
+                              device=cuda_device)
+        pbs_t = torch.tensor(pbs, dtype=torch.uint8, device=cuda_device)
+        for final_pb in (None, 9):
+            got = kernels.strobe_absorb_stream(st, data_t, start, pbs_t,
+                                               final_pb)
+            want = kernels.strobe_absorb_stream_plain(st, data_t, start,
+                                                      pbs_t, final_pb)
+            assert torch.equal(got, want)
+            assert bytes(got.tolist()) == absorb_lane_model(
+                state, data, start, pbs, final_pb)
 
 
 def _pair(label=b"curdleproofs", prefix=b""):
