@@ -8,10 +8,16 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
   1. environment: versions, the card, its power limit, whether the host C
      library or the Python path serves the transcript;
   2. build: compiles the CUDA kernels from ops/csrc/ with nvcc (one process
-     per source, started together) and the host C library with cc;
+     per source, started together) and the host C library with cc; ptxas
+     must report no stack frame and no spills for point_add_kernel and
+     point_double_kernel;
   3. each of the eleven kernels against its plain torch version on the card,
      at the shapes the verifier and the provers give it, compared exactly by
      value (integers, tolerance 0), with timings and roofline bounds;
+     point_add at 1, 2, 4, 7, 24, 33, 1025 and [4, 1, 1024] points and
+     point_double at 1, 4, 24, 1024 and 1025, with infinity in either or
+     both operands, P + P, P + (-P) and P + P through one tensor, also
+     against the host's group law;
      windowed_combine and msm_select_reduce also at ragged shapes, at a
      forced split, and at inputs that hit the corners of the complete
      point formulas, each time beside the time of the previous design;
@@ -42,6 +48,8 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
      (point_x16_add exactly 363: 11 window loops of 33 launches);
      cold/warm times of both provers side by side; strobe_absorb_stream
      exactly 28 and strobe_challenge32 exactly 22 launches a device prove.
+     point_add and point_double are launched exactly 6 and 2 times a
+     verify, 14 and 6 a prove, 64 and 15 a device prove.
 
 The device prover's kernels (phase 3) are held at the shapes of that path
 and at their corners: the Fr product on 65,536 pairs (every pair of ~40
@@ -65,6 +73,7 @@ import json
 import os
 import platform
 import random
+import re
 import statistics
 import subprocess
 import sys
@@ -99,9 +108,18 @@ FIXTURE = os.path.join(ROOT, "tests", "fixture_whisk_ell124.json")
 GOLDEN = os.path.join(ROOT, "tests", "golden_vectors.json")
 SMS_FLIP_BYTE = 4520      # inside the same-multiscalar scalar x (4504-4535)
 PROVE_SEED = 0x5EED       # Rand seed of the ELL=124 prove
-# (windowed_combine, msm_select_reduce) wrapper calls of one run at ELL=124:
-# a redesign of the kernels must leave them as they are
-MSM_LAUNCHES = {"verify": (2, 2), "prove": (23, 21), "device prove": (23, 21)}
+# wrapper calls of one run at ELL=124 that a redesign of the kernels must
+# leave as they are
+PATH_LAUNCHES = {
+    "verify": dict(windowed_combine=2, msm_select_reduce=2, point_add=6,
+                   point_double=2),
+    "prove": dict(windowed_combine=23, msm_select_reduce=21, point_add=14,
+                  point_double=6),
+    "device prove": dict(windowed_combine=23, msm_select_reduce=21,
+                         point_add=64, point_double=15),
+}
+# kernels that ptxas must compile with no stack frame and no spills
+NO_STACK_KERNELS = ("point_add_kernel", "point_double_kernel")
 
 # The card's peaks for the roofline bound (NVIDIA H100 SXM data sheet and
 # Hopper white paper): 3.35e12 bytes/s of HBM3; 67e12 float32 FLOP/s outside
@@ -126,6 +144,8 @@ KECCAK_INT32_OPS = 24 * 150 * 2
 # point_x16_add: one thread a point, 44 products deep (both commit c3c7562).
 # fr_pow_fixed: one bit a step on the 64-bit C product; strobe_absorb_stream:
 # one thread permutes out of shared memory (both commit 9fb31f6).
+# point_add, point_double: from time_kernels.py at commit 1d18dbf, the first
+# of two runs in one call.
 PREVIOUS_DESIGN_MS = {
     "fr_pow_fixed [1] exponent r-2": 0.2807,
     "strobe_absorb_stream [256 x 48]": 1.5394,
@@ -139,6 +159,32 @@ PREVIOUS_DESIGN_MS = {
     "pow_fixed [256] inverse exponent": 0.9313,
     "point_x16_add [24]": 0.1675,
     "point_x16_add [2]": 0.1669,
+    "point_add [1]": 0.0306,
+    "point_add [2]": 0.0587,
+    "point_add [4]": 0.0526,
+    "point_add [7]": 0.0372,
+    "point_add [24]": 0.0348,
+    "point_add [33]": 0.0524,
+    "point_add [1025]": 0.0574,
+    "point_add [4, 1, 1024]": 0.0559,
+    "point_double [1]": 0.0498,
+    "point_double [4]": 0.0510,
+    "point_double [24]": 0.0484,
+    "point_double [1024]": 0.0397,
+    "point_double [1025]": 0.0313,
+}
+# point_add, point_double: one thread a point, 12 / 8 products deep (commit
+# 1d18dbf). Their events above read the wrapper; this is the time a launch
+# on the card (torch.profiler), from time_kernels.py at that commit, the
+# first of two runs in one call, same card and limit.
+PREVIOUS_DESIGN_CARD_MS = {
+    "point_add [1]": 0.0138, "point_add [2]": 0.0137,
+    "point_add [4]": 0.0137, "point_add [7]": 0.0137,
+    "point_add [24]": 0.0138, "point_add [33]": 0.0138,
+    "point_add [1025]": 0.0142, "point_add [4, 1, 1024]": 0.0146,
+    "point_double [1]": 0.0095, "point_double [4]": 0.0095,
+    "point_double [24]": 0.0096, "point_double [1024]": 0.0098,
+    "point_double [1025]": 0.0098,
 }
 MADS_PER_SQUARE = 12 * 13 // 2 + 12 * 12   # 78 partial products, reduction
 FR_MADS_PER_SQUARE = 8 * 9 // 2 + 8 * 8    # 36 partial products, reduction
@@ -153,11 +199,10 @@ def check(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def check_msm_launches(counts: dict, run: str) -> None:
-    got = (counts["windowed_combine"], counts["msm_select_reduce"])
-    check(got == MSM_LAUNCHES[run],
-          f"(windowed_combine, msm_select_reduce) launches per {run}: "
-          f"{got}, expected {MSM_LAUNCHES[run]}")
+def check_path_launches(counts: dict, run: str) -> None:
+    want = PATH_LAUNCHES[run]
+    got = {name: counts[name] for name in want}
+    check(got == want, f"launches per {run}: {got}, expected {want}")
 
 
 def cuda_ms(fn, reps: int = 3) -> float:
@@ -216,13 +261,50 @@ def phase_env(dev: torch.device) -> str:
     return card
 
 
+def ptxas_report(log: str) -> dict:
+    """{function: {"registers", "stack", "spill_stores", "spill_loads"}}
+    from an `nvcc -Xptxas -v` report, by mangled name."""
+    out, entry, props = {}, None, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props:
+            out.setdefault(props, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out.setdefault(entry, {})["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build() -> None:
     from go_curdleproofs_tpu_torch.ops import kernels
 
     t0 = time.perf_counter()
     kernels.build(force=True)
     print(f"build: {time.perf_counter() - t0:.1f} s")
-    print((kernels.BUILD_DIR / "nvcc.log").read_text().strip())
+    log = (kernels.BUILD_DIR / "nvcc.log").read_text().strip()
+    print(log)
+    report = ptxas_report(log)
+    for kernel in NO_STACK_KERNELS:
+        hits = {f: r for f, r in report.items() if kernel in f}
+        check(len(hits) == 1, f"ptxas reports {kernel} once, saw {hits}")
+        (r,) = hits.values()
+        check(r.get("stack") == 0 and r.get("spill_stores") == 0
+              and r.get("spill_loads") == 0,
+              f"{kernel}: no stack frame and no spills, saw {r}")
+        print(f"ptxas: {kernel} {r['registers']} registers, "
+              f"{r['stack']} bytes stack, no spills")
 
 
 def _curve_points(n: int, rng: random.Random):
@@ -339,6 +421,7 @@ def phase_kernels(dev: torch.device) -> dict:
     shapes. Returns {name: {"max_abs_err", "ms", "plain_ms", "bound_ms",
     "bound_by"}} at the kernel's widest main-path shape."""
     from go_curdleproofs_tpu_torch.ops import curve, fp, kernels
+    from go_curdleproofs_tpu_torch.time_kernels import card_ms
     from go_curdleproofs_tpu_torch.utils import field_host as fh
 
     rng = random.Random(2024)
@@ -404,57 +487,76 @@ def phase_kernels(dev: torch.device) -> dict:
           f"({n_edge}), and {65536 - n_edge} random pairs: exact; "
           f"pow_fixed(x, 2) == mont_mul(x, x) on all 65,536")
 
-    # a 1024-point base row; its first lanes hold the edge cases
-    pts = _curve_points(1024, rng)
-    qts = _curve_points(1024, rng)
+    # B2 and B3: 1025 points, whose first lanes hold the corners of the
+    # complete formulas; every batch below is a prefix of them
+    pts = _curve_points(1025, rng)
+    qts = _curve_points(1025, rng)
     pts[0] = None                              # infinity + Q
     qts[1] = None                              # P + infinity
     pts[2] = qts[2] = None                     # infinity + infinity
     qts[3] = pts[3]                            # P + P
     qts[4] = fh.g1_neg(pts[4])                 # P + (-P)
-    pv = curve.from_affine_host(pts, device=dev)
-    qv = curve.from_affine_host(qts, device=dev)
+    pv_all = curve.from_affine_host(pts, device=dev)
+    qv_all = curve.from_affine_host(qts, device=dev)
 
-    # B3: the table build's double of the [1, 1024] row
-    got, want = kernels.point_double(pv), kernels.point_double_plain(pv)
-    err = _point_err(got, want)
-    check(err == 0 and curve.to_affine_host(got)
-          == [fh.g1_add(p, p) for p in pts], "point_double [1024]")
-    report("point_double", [1024], err,
-           kernel_ms(lambda: kernels.point_double(pv)),
-           cuda_ms(lambda: kernels.point_double_plain(pv)),
-           bound(6 * 1024 * ELEM_BYTES, 1024 * PRODUCTS_DOUBLE))
+    def prefix(v, n):
+        return curve.pmap(lambda t: t[:n].contiguous(), v)
 
-    # B2: the [33] window-sum add of the final MSM and the [4, 1, 1024]
-    # table-build add
-    got, want = kernels.point_add(pv, qv), kernels.point_add_plain(pv, qv)
-    check(_point_err(got, want) == 0 and curve.to_affine_host(got)
-          == [fh.g1_add(p, q) for p, q in zip(pts, qts)],
-          "point_add edge cases")
-    same = kernels.point_add(pv, pv)                       # aliased operands
-    check(_point_err(same, kernels.point_add_plain(pv, pv)) == 0
-          and curve.to_affine_host(same) == [fh.g1_add(p, p) for p in pts],
-          "point_add(p, p)")
-    p33 = curve.pmap(lambda t: t[:33].contiguous(), pv)
-    q33 = curve.pmap(lambda t: t[:33].contiguous(), qv)
-    got, want = kernels.point_add(p33, q33), kernels.point_add_plain(p33, q33)
-    check(_point_err(got, want) == 0, "point_add [33]")
-    report("point_add", [33], 0,
-           kernel_ms(lambda: kernels.point_add(p33, q33)),
-           cuda_ms(lambda: kernels.point_add_plain(p33, q33)),
-           bound(9 * 33 * ELEM_BYTES, 33 * PRODUCTS_ADD), keep=False)
+    def check_point_op(name, args, want_aff, shape, keep):
+        """The kernel against its plain version (words) and the host
+        oracle (affine), then timed beside the previous design."""
+        kernel = getattr(kernels, name)
+        plain = getattr(kernels, name + "_plain")
+        got = kernel(*args)
+        err = _point_err(got, plain(*args))
+        check(err == 0 and curve.to_affine_host(got) == want_aff,
+              f"{name} {shape}")
+        n = got.x.numel() // fp.NWORDS
+        products, coords = ((PRODUCTS_ADD, 9) if len(args) == 2
+                            else (PRODUCTS_DOUBLE, 6))
+        report(name, shape, err, kernel_ms(lambda: kernel(*args)),
+               cuda_ms(lambda: plain(*args)),
+               bound(coords * n * ELEM_BYTES, n * products), keep=keep)
+        on_card = card_ms(lambda: kernel(*args), name + "_kernel")
+        prev = PREVIOUS_DESIGN_CARD_MS[f"{name} {shape}"]
+        print(f"{name} {shape}: on the card {on_card:.4f} ms a launch "
+              f"(previous design {prev:.4f} ms)")
+
+    # B3: the device prover's 1-24 points, the table build's [1024] row
+    # (the widest shape on the paths), 1025 for a ragged last block
+    for n in (1, 4, 24, 1024, 1025):
+        check_point_op("point_double", (prefix(pv_all, n),),
+                       [fh.g1_add(p, p) for p in pts[:n]], [n],
+                       keep=n == 1024)
+
+    # B2: the device prover's 1-24 points, the final MSM's [33] window
+    # sums, 1025, and the table build's [4, 1, 1024]; each with P and Q
+    # and with P as both operands (the same tensors)
+    for n in (1, 2, 4, 7, 24, 33, 1025):
+        pv, qv = prefix(pv_all, n), prefix(qv_all, n)
+        check_point_op("point_add", (pv, qv),
+                       [fh.g1_add(p, q) for p, q in zip(pts, qts[:n])], [n],
+                       keep=False)
+        same = kernels.point_add(pv, pv)
+        check(_point_err(same, kernels.point_add_plain(pv, pv)) == 0
+              and curve.to_affine_host(same)
+              == [fh.g1_add(p, p) for p in pts[:n]],
+              f"point_add(p, p) [{n}]")
     p4 = curve.pmap(lambda t: t.expand(4, 1, 1024, fp.NWORDS).contiguous(),
-                    pv)
+                    prefix(pv_all, 1024))
     q4 = curve.pmap(lambda t: torch.stack(
         [t, t.roll(1, 0), t.roll(2, 0), t.roll(3, 0)])[:, None].contiguous(),
-        qv)
-    got, want = kernels.point_add(p4, q4), kernels.point_add_plain(p4, q4)
-    err = _point_err(got, want)
-    check(err == 0, "point_add [4,1,1024]")
-    report("point_add", [4, 1, 1024], err,
-           kernel_ms(lambda: kernels.point_add(p4, q4)),
-           cuda_ms(lambda: kernels.point_add_plain(p4, q4)),
-           bound(9 * 4096 * ELEM_BYTES, 4096 * PRODUCTS_ADD))
+        prefix(qv_all, 1024))
+    q4_aff = [qts[(i - k) % 1024] for k in range(4) for i in range(1024)]
+    check_point_op("point_add", (p4, q4),
+                   [fh.g1_add(pts[i % 1024], q)
+                    for i, q in enumerate(q4_aff)], [4, 1, 1024], keep=True)
+    same = kernels.point_add(p4, p4)
+    check(_point_err(same, kernels.point_add_plain(p4, p4)) == 0,
+          "point_add(p, p) [4, 1, 1024]")
+    print("point_add and point_double: the corners (infinity in either or "
+          "both operands, P + P, P + (-P)) and P + P through one tensor "
+          "exact against the plain versions and the host's group law")
 
     # B7: the decode's sqrt ladder over the 1024-lane pool and the provers'
     # inverse ladders ([256], [24], [1]; exponent p - 2, with 0)
@@ -993,7 +1095,7 @@ def phase_verifier(dev: torch.device, card: str):
     warm_ms = cuda_ms(lambda: check(verify(*insts[0]), "warm verify"))
     kernels.reset_launches()
     check(verify(*insts[0]), "counted verify")
-    check_msm_launches(kernels.launches, "verify")
+    check_path_launches(kernels.launches, "verify")
     print(f"verify ELL=124: cold {cold_ms:.1f} ms, warm {warm_ms:.1f} ms "
           f"(median of 3) on {card}; launches per verify "
           f"{dict(kernels.launches)}")
@@ -1070,7 +1172,7 @@ def phase_prover(dev: torch.device, card: str, crs, insts, gv) -> dict:
     cold_ms = (time.perf_counter() - t0) * 1e3
     counts = dict(kernels.launches)
     check(len(proof) == whisk.WHISK_SHUFFLE_PROOF_SIZE, "proof size 4576")
-    check_msm_launches(counts, "prove")
+    check_path_launches(counts, "prove")
     for name in EARLIER_KERNELS:
         check(counts[name] > 0, f"{name} launched on the prover path")
 
@@ -1179,7 +1281,7 @@ def phase_device_prover(dev: torch.device, card: str, crs, insts, gv,
               "ELL=124 prover=device proof byte-identical to prover=host")
         for name, n in counts.items():
             check(n > 0, f"{name} launched by the device prove")
-        check_msm_launches(counts, "device prove")
+        check_path_launches(counts, "device prove")
         for name, n in DEVICE_PROVE_LAUNCHES.items():
             check(counts[name] == n, f"{n} {name} launches a device prove, "
                   f"saw {counts[name]}")

@@ -1,4 +1,4 @@
-// BLS12-381 base field Fp and G1 point formulas as CUDA device functions.
+// BLS12-381 base field Fp as CUDA device functions.
 //
 // An element is 12 little-endian 32-bit words of its Montgomery form
 // x*R mod p, R = 2^384, fully reduced below p: the same words that the
@@ -10,11 +10,8 @@
 // function, the multiply-adds of a row in two independent chains over even
 // and odd word pairs). Every function takes and returns fully reduced
 // elements, and a Montgomery product with a canonical result is unique, so
-// the kernels give the words of the plain torch versions. Points are
-// homogeneous projective (X : Y : Z) under the complete formulas of
-// Renes-Costello-Batina 2016 (algorithms 7 and 9, a = 0, b3 = 3b = 12),
-// mirroring go_curdleproofs_tpu/ops/curve.py:156-201: no branch for infinity
-// or doubling, so every thread runs the same schedule.
+// the kernels give the words of the plain torch versions. The G1 point
+// operations on these elements are in point_coop.cuh.
 #pragma once
 
 #include <cstdint>
@@ -27,10 +24,6 @@ constexpr int NW = 12;
 
 struct Fp {
   uint32_t w[NW];
-};
-
-struct Point {
-  Fp x, y, z;
 };
 
 // p (fp_asm.cuh has its words, and -p^-1 mod 2^32, as immediates) and
@@ -101,91 +94,6 @@ __device__ __forceinline__ void fp_sqr(Fp& r, const Fp& a) {
   fp_sqr_words(t, a.w);
 #pragma unroll
   for (int j = 0; j < NW; ++j) r.w[j] = t[j];
-}
-
-// r = 12 * a (the integer 12, as curve.py's mul_small(., B3)).
-__device__ __forceinline__ void fp_mul12(Fp& r, const Fp& a) {
-  Fp t;
-  fp_add(t, a, a);  // 2a
-  fp_add(t, t, a);  // 3a
-  fp_add(t, t, t);  // 6a
-  fp_add(r, t, t);  // 12a
-}
-
-__device__ __forceinline__ void point_set_infinity(Point& r) {
-  fp_set_zero(r.x);
-  fp_set_one(r.y);
-  fp_set_zero(r.z);
-}
-
-// Complete addition, RCB16 algorithm 7 (a = 0), in curve.py's two stages.
-// Not inlined: one copy serves every call site and keeps compile time short.
-__device__ __noinline__ void point_add(Point& r, const Point& p, const Point& q) {
-  Fp t0, t1, t2, m4, m5, m6, u, v;
-  fp_mul(t0, p.x, q.x);
-  fp_mul(t1, p.y, q.y);
-  fp_mul(t2, p.z, q.z);
-  fp_add(u, p.x, p.y);
-  fp_add(v, q.x, q.y);
-  fp_mul(m4, u, v);
-  fp_add(u, p.y, p.z);
-  fp_add(v, q.y, q.z);
-  fp_mul(m5, u, v);
-  fp_add(u, p.x, p.z);
-  fp_add(v, q.x, q.z);
-  fp_mul(m6, u, v);
-
-  Fp t3, t4, y3, t03, t2b, z3, t1m, y3b;
-  fp_add(u, t0, t1);
-  fp_sub(t3, m4, u);
-  fp_add(u, t1, t2);
-  fp_sub(t4, m5, u);
-  fp_add(u, t0, t2);
-  fp_sub(y3, m6, u);
-  fp_add(t03, t0, t0);
-  fp_add(t03, t03, t0);
-  fp_mul12(t2b, t2);
-  fp_add(z3, t1, t2b);
-  fp_sub(t1m, t1, t2b);
-  fp_mul12(y3b, y3);
-
-  Fp n1, n2;
-  fp_mul(n1, t4, y3b);
-  fp_mul(n2, t3, t1m);
-  fp_sub(r.x, n2, n1);
-  fp_mul(n1, y3b, t03);
-  fp_mul(n2, t1m, z3);
-  fp_add(r.y, n2, n1);
-  fp_mul(n1, t03, t3);
-  fp_mul(n2, z3, t4);
-  fp_add(r.z, n2, n1);
-}
-
-// Complete doubling, RCB16 algorithm 9 (a = 0).
-__device__ __noinline__ void point_double(Point& r, const Point& p) {
-  Fp t0, t1, t2, m4, u;
-  fp_mul(t0, p.y, p.y);
-  fp_mul(t1, p.y, p.z);
-  fp_mul(u, p.z, p.z);
-  fp_mul12(t2, u);
-  fp_mul(m4, p.x, p.y);
-
-  Fp z3s, y3s, t0m;
-  fp_add(z3s, t0, t0);
-  fp_add(z3s, z3s, z3s);
-  fp_add(z3s, z3s, z3s);  // 8 t0
-  fp_add(y3s, t0, t2);
-  fp_add(u, t2, t2);
-  fp_add(u, u, t2);
-  fp_sub(t0m, t0, u);     // t0 - 3 t2
-
-  Fp n1, n2;
-  fp_mul(n1, t0m, m4);
-  fp_add(r.x, n1, n1);
-  fp_mul(n1, t2, z3s);
-  fp_mul(n2, t0m, y3s);
-  fp_add(r.y, n1, n2);
-  fp_mul(r.z, t1, z3s);
 }
 
 }  // namespace curdle

@@ -1,19 +1,25 @@
 // Cooperative G1 point operations: a group of 8 neighbouring lanes of one
 // warp carries out ONE complete addition or doubling.
 //
-// Why: a complete RCB16 operation (fp.cuh: point_add, point_double) is two
-// rounds of independent Montgomery products with only additions between
-// them: 6 + 6 for an add, 4 + 4 for a double. One thread runs them one after
-// another, 12 or 8 products deep, and a product is ~0.9 us for a lone warp
-// (NVIDIA H100 80GB HBM3, 700 W; kernels.cu's header has the counts). The
-// kernels that call these functions (kernels.cu: windowed_combine,
-// msm_select_reduce, point_x16_add) are chains of dependent point operations
-// on few points, so the depth of one operation sets their time. Here lane k
-// of the group computes product k of a round: an operation is 2 products
-// deep, and a lane holds one product's registers and not a whole formula's
-// 255. The lanes of a group multiply different pairs, so they all call
-// fp_mul, also where the pair is a square: fp_sqr in some lanes would make
-// the warp run both instruction streams one after the other.
+// Points are homogeneous projective (X : Y : Z) under the complete formulas
+// of Renes-Costello-Batina 2016 (algorithms 7 and 9, a = 0, b3 = 3b = 12),
+// mirroring go_curdleproofs_tpu/ops/curve.py:156-201: no branch for infinity
+// or doubling, so every group runs the same schedule.
+//
+// Why: a complete RCB16 operation is two rounds of independent Montgomery
+// products with only additions between them: 6 + 6 for an add, 4 + 4 for a
+// double. One thread runs them one after another, 12 or 8 products deep,
+// and a product is ~0.9 us for a lone warp (NVIDIA H100 80GB HBM3, 700 W;
+// kernels.cu's header has the counts). The kernels that call these
+// functions (pointwise.cu: point_add, point_double; kernels.cu:
+// windowed_combine, msm_select_reduce, point_x16_add) run one operation or
+// a chain of dependent operations on few points, so the depth of one
+// operation sets their time. Here lane k of the group computes product k of
+// a round: an operation is 2 products deep, and a lane holds one product's
+// registers and not a whole formula's. The lanes of a group multiply
+// different pairs, so they all call fp_mul, also where the pair is a
+// square: fp_sqr in some lanes would make the warp run both instruction
+// streams one after the other.
 //
 // Where the data lives: in shared memory, one GroupMem (864 bytes) a group.
 // The accumulator, the incoming point, a round's products and the round-2
@@ -36,8 +42,11 @@
 //   3. round 2: lane k multiplies its pair of operands;
 //   4. lanes 0..2 form X3, Y3, Z3 into the accumulator.
 //
-// The functions compute exactly fp.cuh's point_add and point_double: the
-// same formulas on fully reduced elements, so the same words come out.
+// The functions compute exactly what the plain versions point_add_plain and
+// point_double_plain (go_curdleproofs_tpu_torch/ops/kernels.py) compute:
+// the same formulas on fully reduced elements, so the same words come out.
+// tests/test_torch_point_coop.py reads the index tables below and runs a
+// lane-by-lane model of both functions against those plain versions.
 #pragma once
 
 #include "fp.cuh"

@@ -2,40 +2,41 @@
 // complete point add, complete point double, and the scalar field's batched
 // multiply and fixed-exponent ladder (fr.cuh on fr_asm.cuh), with a plain C
 // launcher each for ctypes (go_curdleproofs_tpu_torch/ops/kernels.py). The
-// fused 16*acc + sel step is in kernels.cu, on the cooperative point
-// operations.
+// point add and double run on the cooperative point operations of
+// point_coop.cuh, as the fused 16*acc + sel step in kernels.cu does.
 //
 // Every launcher enqueues on the stream it is given, allocates nothing, and
 // returns cudaGetLastError() so that a refused launch reaches the caller.
 // Elements are the port's: 12 int32 words each (read here as uint32,
-// fp.cuh), contiguous, any batch size, no padding to a block. Each thread
-// takes one element (one point) and strides over the batch by the grid.
-// Outputs never alias inputs (the wrapper allocates them); the two inputs
-// of a multiply or an add may be the same array (P + P, a * a).
+// fp.cuh), contiguous, any batch size, no padding to a block. A multiply
+// takes one element a thread, a point operation one point an 8-lane group;
+// both stride over the batch by the grid. Outputs never alias inputs (the
+// wrapper allocates them); the two inputs of a multiply or an add may be the
+// same array (P + P, a * a).
 //
 // What bounds them on an H100: operations in name. One Montgomery product is
 // 2*144 32x32->64 multiply-adds over 144 bytes moved (two elements in, one
 // out), ~2 multiply-adds per byte against a card balance of ~5 per byte
 // (16.7e12 multiply-adds/s, 3.35e12 bytes/s), so a lone multiply sits under
 // the memory line and an add (12 products over 432 bytes) above it. At the
-// verifier's and prover's batch sizes (tens to a few thousand elements)
-// neither line is near: these kernels take 10-20 us on the card, less than
-// the wrapper's call and its torch.empty, which is what CUDA events around
-// them read (0.03-0.05 ms; NVIDIA H100 80GB HBM3, 700 W).
+// verifier's and prover's batch sizes (1 to a few thousand elements) neither
+// line is near: what a launch takes on the card is its longest chain of
+// dependent products and the launch itself.
 
 #include <cuda_runtime.h>
 
 #include "fp.cuh"
 #include "fr.cuh"
+#include "point_coop.cuh"
 
 using curdle::Fp;
 using curdle::Fr;
-using curdle::Point;
+using curdle::GroupMem;
+using curdle::kGroupLanes;
 
 namespace {
 
 constexpr int kMulThreads = 128;
-constexpr int kPointThreads = 64;
 constexpr int kMaxBlocks = 132 * 16;   // grid-stride beyond this many blocks
 
 // ---------------------------------------------------------------------------
@@ -62,12 +63,48 @@ mont_mul_kernel(const Fp* __restrict__ a, const Fp* __restrict__ b,
 }
 
 // ---------------------------------------------------------------------------
-// point_add: (ox, oy, oz)[i] = P[i] + Q[i], complete (RCB16 algorithm 7).
+// point_add: (ox, oy, oz)[i] = P[i] + Q[i], complete (RCB16 algorithm 7);
+// point_double: (ox, oy, oz)[i] = 2 * P[i], complete (RCB16 algorithm 9).
 //
-// Replaces go_curdleproofs_tpu/ops/rns_kernels.py:point_add: the same 12
-// field products, the same answer for infinity + P, P + P and P + (-P), no
-// branch. One thread per point; the formula keeps ~20 field elements live,
-// so the register file, not shared memory, is the scarce resource.
+// Replace go_curdleproofs_tpu/ops/rns_kernels.py:point_add and point_double:
+// the same 12 and 8 field products (b3 = 12 is additions), the same answer
+// for infinity + P, P + P and P + (-P), no branch. Their callers are the
+// table builds of every MSM ([4, 1, 1024] adds and [1024] doubles in the
+// verifier and the host prover), the final MSM's window sums, and the
+// device prover's single-point and few-point sums (1 to 24 points).
+// Bound: operations in name (12 products over 432 bytes a point), but at 1
+// to 4,096 points neither the card's multiply rate nor its memory is near:
+// one operation's chain of dependent products is. A thread a point runs 12
+// (8) products one after another at ~0.9 us each for a lone warp, with the
+// whole formula in 188 (146) registers and a 432 (288) byte stack:
+// 13.7-14.7 (9.5-9.9) us a launch on the card. What the design does about
+// it:
+//   * one 8-lane group a point on point_coop.cuh's coop_add / coop_double:
+//     lanes 0..2 load P's coordinates (and Q's) into the group's GroupMem in
+//     shared memory, the group runs one operation two products deep, lanes
+//     0..2 store X3, Y3, Z3. A lane holds one product's registers; nothing
+//     is compiled as a function with a stack frame;
+//   * a block is POINT_THREADS threads (POINT_THREADS / 8 points); the
+//     grid covers the batch up to kMaxBlocks blocks and a whole group
+//     strides on by the grid beyond that, so every lane of a group is in
+//     the loop or out of it together and each __syncwarp(mask) names live
+//     lanes only. Indices are 64-bit.
+// POINT_THREADS: one warp a block, as point_x16_add and pow_fixed have.
+// time_kernels.py --point-threads built this file at 32, 64 and 128 and
+// timed both kernels on the card at the paths' shapes, twice in one call
+// (NVIDIA H100 80GB HBM3, 700 W): at 1 to 1,025 points the three were
+// within 0.5 us of each other (an add 4.3-4.8 us a launch, a double
+// 3.9-4.2 us); at [4, 1, 1024] 32 threads read 6.2 us both times, 64 and
+// 128 6.1-6.8. The one-warp block stays: no size was faster by more than
+// the noise. The add takes 68 registers, the double 60, no stack (ptxas):
+// 4.3-6.2 and 3.9-4.2 us a launch on the card.
+
+#ifndef POINT_THREADS
+#define POINT_THREADS 32
+#endif
+constexpr int kPointThreads = POINT_THREADS;
+constexpr int kPointGroups = kPointThreads / kGroupLanes;
+static_assert(kPointThreads % 32 == 0, "whole warps a block");
 
 __global__ void __launch_bounds__(kPointThreads)
 point_add_kernel(const Fp* __restrict__ px, const Fp* __restrict__ py,
@@ -75,45 +112,45 @@ point_add_kernel(const Fp* __restrict__ px, const Fp* __restrict__ py,
                  const Fp* __restrict__ qy, const Fp* __restrict__ qz,
                  Fp* __restrict__ ox, Fp* __restrict__ oy, Fp* __restrict__ oz,
                  long long n) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+  __shared__ GroupMem mem[kPointGroups];
+  const int lane = threadIdx.x % kGroupLanes;
+  const int group = threadIdx.x / kGroupLanes;
+  const unsigned mask = curdle::group_mask();
+  GroupMem& m = mem[group];
+  const Fp* p = lane == 0 ? px : lane == 1 ? py : pz;
+  const Fp* q = lane == 0 ? qx : lane == 1 ? qy : qz;
+  Fp* out = lane == 0 ? ox : lane == 1 ? oy : oz;
+  const long long step = (long long)gridDim.x * kPointGroups;
+  for (long long i = (long long)blockIdx.x * kPointGroups + group; i < n;
        i += step) {
-    Point p, q, r;
-    p.x = px[i];
-    p.y = py[i];
-    p.z = pz[i];
-    q.x = qx[i];
-    q.y = qy[i];
-    q.z = qz[i];
-    curdle::point_add(r, p, q);
-    ox[i] = r.x;
-    oy[i] = r.y;
-    oz[i] = r.z;
+    if (lane < 3) {
+      m.acc[lane] = p[i];
+      m.q[lane] = q[i];
+    }
+    __syncwarp(mask);
+    curdle::coop_add(m, lane, mask);
+    if (lane < 3) out[i] = m.acc[lane];
   }
 }
-
-// ---------------------------------------------------------------------------
-// point_double: (ox, oy, oz)[i] = 2 * P[i], complete (RCB16 algorithm 9).
-//
-// Replaces go_curdleproofs_tpu/ops/rns_kernels.py:point_double: 8 field
-// products (the multiplication by b3 = 12 is additions), infinity doubles
-// to infinity.
 
 __global__ void __launch_bounds__(kPointThreads)
 point_double_kernel(const Fp* __restrict__ px, const Fp* __restrict__ py,
                     const Fp* __restrict__ pz, Fp* __restrict__ ox,
                     Fp* __restrict__ oy, Fp* __restrict__ oz, long long n) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+  __shared__ GroupMem mem[kPointGroups];
+  const int lane = threadIdx.x % kGroupLanes;
+  const int group = threadIdx.x / kGroupLanes;
+  const unsigned mask = curdle::group_mask();
+  GroupMem& m = mem[group];
+  const Fp* p = lane == 0 ? px : lane == 1 ? py : pz;
+  Fp* out = lane == 0 ? ox : lane == 1 ? oy : oz;
+  const long long step = (long long)gridDim.x * kPointGroups;
+  for (long long i = (long long)blockIdx.x * kPointGroups + group; i < n;
        i += step) {
-    Point p, r;
-    p.x = px[i];
-    p.y = py[i];
-    p.z = pz[i];
-    curdle::point_double(r, p);
-    ox[i] = r.x;
-    oy[i] = r.y;
-    oz[i] = r.z;
+    if (lane < 3) m.acc[lane] = p[i];
+    __syncwarp(mask);
+    curdle::coop_double(m, lane, mask);
+    if (lane < 3) out[i] = m.acc[lane];
   }
 }
 
@@ -227,8 +264,9 @@ fr_pow_fixed_kernel(const Fr* __restrict__ x, Fr* __restrict__ out,
   out[i] = acc;
 }
 
-int blocks_for(long long n, int threads) {
-  long long b = (n + threads - 1) / threads;
+// Blocks for n items at `per_block` items a block, at most kMaxBlocks.
+int blocks_for(long long n, int per_block) {
+  long long b = (n + per_block - 1) / per_block;
   return (int)(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
@@ -253,7 +291,7 @@ int curdle_point_add(const void* px, const void* py, const void* pz,
                      const void* qx, const void* qy, const void* qz, void* ox,
                      void* oy, void* oz, long long n, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  point_add_kernel<<<blocks_for(n, kPointThreads), kPointThreads, 0,
+  point_add_kernel<<<blocks_for(n, kPointGroups), kPointThreads, 0,
                      (cudaStream_t)stream>>>(
       (const Fp*)px, (const Fp*)py, (const Fp*)pz, (const Fp*)qx,
       (const Fp*)qy, (const Fp*)qz, (Fp*)ox, (Fp*)oy, (Fp*)oz, n);
@@ -264,7 +302,7 @@ int curdle_point_double(const void* px, const void* py, const void* pz,
                         void* ox, void* oy, void* oz, long long n,
                         void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  point_double_kernel<<<blocks_for(n, kPointThreads), kPointThreads, 0,
+  point_double_kernel<<<blocks_for(n, kPointGroups), kPointThreads, 0,
                         (cudaStream_t)stream>>>(
       (const Fp*)px, (const Fp*)py, (const Fp*)pz, (Fp*)ox, (Fp*)oy, (Fp*)oz,
       n);

@@ -2,11 +2,12 @@
 
 Each kernel (CUDA C++ for sm_90a; ops/csrc/pointwise.cu holds mont_mul,
 point_add, point_double, fr_mont_mul and fr_pow_fixed, ops/csrc/kernels.cu
-holds pow_fixed, windowed_combine, msm_select_reduce and point_x16_add,
-the last three on the cooperative point operations of
-ops/csrc/point_coop.cuh, ops/csrc/transcript.cu holds strobe_absorb_stream
-and strobe_challenge32; the Fp and Fr arithmetic of all of them is
-ops/csrc/fp_asm.cuh and fr_asm.cuh, written by ops/csrc/gen_fp_asm.py) has
+holds pow_fixed, windowed_combine, msm_select_reduce and point_x16_add;
+point_add, point_double and the last three run on the cooperative point
+operations of ops/csrc/point_coop.cuh; ops/csrc/transcript.cu holds
+strobe_absorb_stream and strobe_challenge32; the Fp and Fr arithmetic of
+all of them is ops/csrc/fp_asm.cuh and fr_asm.cuh, written by
+ops/csrc/gen_fp_asm.py) has
 
   * a wrapper that checks its tensors and, for CUDA tensors, launches the
     kernel on PyTorch's current stream, raising if the launch is refused;

@@ -17,7 +17,8 @@ given:
     transcript, Fr arithmetic, single-point group operations;
   * from torch.profiler over the same number of runs: CUDA kernel launches
     per run, device time per run and the device-busy share of the wall time,
-    and the device time of the top 8 kernels and of each of the port's own.
+    and the device time of the top 8 kernels and of each of the port's own,
+    per run and a launch.
 
 The section clocks add a synchronise per section, so the sections are timed
 in their own runs, apart from the wall-time runs.
@@ -202,9 +203,7 @@ def profile_device_prove(name: str, fn) -> dict:
         device_busy_share=device_ms / sum(prof_walls),
         profiled_wall_ms_median=statistics.median(prof_walls),
         port_kernel_launches_per_run=launches,
-        top_device_kernels=[dict(name=e.key[:80], count=e.count / REPS,
-                                 device_ms_per_run=e.self_device_time_total
-                                 / 1e3 / REPS) for e in top])
+        top_device_kernels=_kernel_rows(top))
     print(f"== {name}")
     print(json.dumps(res, indent=1))
     return res
@@ -217,6 +216,13 @@ def _top_kernels(cuda_events):
     own = tuple(f"{name}_kernel" for name in kernels.KERNEL_NAMES)
     return [e for i, e in enumerate(ranked)
             if i < 8 or any(k in e.key for k in own)]
+
+
+def _kernel_rows(events):
+    return [dict(name=e.key[:80], count=e.count / REPS,
+                 device_ms_per_run=e.self_device_time_total / 1e3 / REPS,
+                 device_ms_a_launch=e.self_device_time_total / 1e3 / e.count)
+            for e in events]
 
 
 def _wall_ms(fn):
@@ -258,9 +264,7 @@ def profile(name: str, fn) -> dict:
         device_busy_share=device_ms / sum(prof_walls),
         profiled_wall_ms_median=statistics.median(prof_walls),
         port_kernel_launches_per_run=launches,
-        top_device_kernels=[dict(name=e.key[:80], count=e.count / REPS,
-                                 device_ms_per_run=e.self_device_time_total
-                                 / 1e3 / REPS) for e in top])
+        top_device_kernels=_kernel_rows(top))
     print(f"== {name}")
     print(json.dumps(res, indent=1))
     return res

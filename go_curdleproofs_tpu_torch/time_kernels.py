@@ -1,12 +1,13 @@
 """Device times of the port's kernels at the main paths' shapes, for
-comparing two checkouts on one card: mont_mul (B1), point_x16_add (B4, both
+comparing two checkouts on one card: mont_mul (B1), point_add (B2),
+point_double (B3), point_x16_add (B4, both
 load stages, and the window loop on it), windowed_combine (B5),
 msm_select_reduce (B6), pow_fixed (B7), and the device prover's
 fr_pow_fixed (B8), fr_mont_mul, strobe_absorb_stream and
 strobe_challenge32.
 
     python3 go_curdleproofs_tpu_torch/time_kernels.py [--root CHECKOUT]
-                                        [--splits] [--threads] [--sass]
+                        [--splits] [--threads] [--point-threads] [--sass]
 
 Needs one CUDA card (it fails without one). It imports the port from
 CHECKOUT (default: the checkout this file is in), builds that checkout's
@@ -17,6 +18,11 @@ wherever a checkout has them, so it also times a checkout from before a
 kernel was redesigned: run it on the old checkout, the new, the new and the
 old again inside one call, and compare. What an old checkout lacks (the
 select stage of point_x16_add) is left out with a note.
+
+A launch that ends before the host's next call reads the wrapper (its
+ctypes call and torch.empty), not the card: point_add and point_double are
+such launches at every shape of the paths. So their lines also give the
+time a launch on the card, from torch.profiler over the same launches.
 
 The lone-warp times of one Fp product and one square are read from
 pow_fixed on one element: exponent 2^380 is squarings only, 2^384 - 1 adds
@@ -33,7 +39,11 @@ msm_select_reduce (the wrapper's private `_split`), which is how the
 wrapper's choice (`kernels._msm_split`) was made. --threads sweeps
 pow_fixed's threads a block (the wrapper's private `_threads`) and fills
 the card with one and with two blocks an SM, which shows whether a lone
-warp leaves its scheduler idle. --sass counts the instructions of every
+warp leaves its scheduler idle. --point-threads builds the checkout's
+pointwise.cu at 32, 64 and 128 threads a block of point_add and
+point_double (its POINT_THREADS) into the build directory and times both
+kernels of each build on the card at the paths' shapes, which is how the
+block size of pointwise.cu was chosen. --sass counts the instructions of every
 kernel in the built libraries with cuobjdump (fr_mont_mul_kernel is one Fr
 product with its loads and stores). Each needs a checkout whose
 wrapper has that argument.
@@ -53,6 +63,12 @@ SHAPES_B6 = [(6, 256), (1, 256), (1, 2048)]         # (jobs, lanes)
 SHAPES_B6_SWEEP = [(1, 256), (3, 256), (6, 256), (1, 512), (1, 2048)]
 ROWS_B5 = [1, 6, 7, 2048]
 SPLITS = (1, 2, 4, 8, 16)
+# points a launch of B2 and B3 on the paths: the device prover's 1-24, the
+# final MSM's 33, the table builds' [4, 1, 1024] and [1024]; 7 and 1025 are
+# ragged
+ADD_SHAPES = [(1,), (2,), (4,), (7,), (24,), (33,), (1025,), (4, 1, 1024)]
+DOUBLE_SHAPES = [(1,), (4,), (24,), (1024,), (1025,)]
+POINT_THREADS = (32, 64, 128)
 
 
 def kernel_ms(fn, launches=20):
@@ -71,12 +87,35 @@ def kernel_ms(fn, launches=20):
     return start.elapsed_time(end) / launches
 
 
+def card_ms(fn, kernel, launches=20):
+    """Device time a launch of `kernel` (its name in the profiler, e.g.
+    point_add_kernel) in ms, from torch.profiler over `launches` calls
+    after a warm-up call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and kernel in e.key]
+    count = sum(e.count for e in hits)
+    if count == 0:
+        return float("nan")
+    return sum(e.self_device_time_total for e in hits) / count / 1e3
+
+
 def main() -> int:
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=here)
     ap.add_argument("--splits", action="store_true")
     ap.add_argument("--threads", action="store_true")
+    ap.add_argument("--point-threads", action="store_true")
     ap.add_argument("--sass", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
@@ -210,10 +249,100 @@ def main() -> int:
               f"{cells[0]} ms, one windowed_combine launch {cells[1]} ms",
               flush=True)
 
+    point_ops = point_inputs(dev, pts)
+    time_point_ops(kernels, point_ops)
+    if args.point_threads:
+        sweep_point_threads(kernels, point_ops)
     device_prover_kernels(kernels, dev, rng)
     if args.sass:
         sass_counts(kernels)
     return 0
+
+
+def point_inputs(dev, pts):
+    """{("add" | "double", shape): tuple of PointVecs} for B2 and B3: P
+    from 1,025 distinct points, Q the same row rolled by 17."""
+    import torch
+    from go_curdleproofs_tpu_torch.ops import curve
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
+
+    row = curve.from_affine_host(pts + [fh.g1_add(pts[0], pts[-1])],
+                                 device=dev)                     # 1025
+    out = {}
+    for kind, shapes in (("add", ADD_SHAPES), ("double", DOUBLE_SHAPES)):
+        for shape in shapes:
+            n = 1
+            for d in shape:
+                n *= d
+
+            def take(v, shift):
+                return curve.pmap(lambda t: torch.cat(
+                    [t.roll(shift, 0)] * (n // 1025 + 1))[:n].reshape(
+                        *shape, t.shape[-1]).contiguous(), v)
+            out[kind, shape] = ((take(row, 0), take(row, 17))
+                                if kind == "add" else (take(row, 0),))
+    return out
+
+
+def time_point_ops(kernels, point_ops) -> None:
+    """B2 and B3 at the paths' shapes: CUDA events around 20 wrapper calls,
+    and the time a launch on the card from the profiler."""
+    for (kind, shape), args in point_ops.items():
+        name = "point_" + kind
+        fn = getattr(kernels, name)
+        ms = kernel_ms(lambda: fn(*args))
+        on_card = card_ms(lambda: fn(*args), name + "_kernel")
+        print(f"{name} {list(shape)}: {ms:.4f} ms, on the card "
+              f"{on_card:.4f} ms a launch", flush=True)
+
+
+def sweep_point_threads(kernels, point_ops) -> None:
+    """pointwise.cu built at each of POINT_THREADS threads a block, point_add
+    and point_double of each build timed on the card."""
+    import ctypes
+    import torch
+
+    src = kernels._CSRC / "pointwise.cu"
+    if "POINT_THREADS" not in src.read_text():
+        print("point threads: this checkout's pointwise.cu has no "
+              "POINT_THREADS", flush=True)
+        return
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for th in POINT_THREADS:
+        lib = kernels.BUILD_DIR / f"libcurdle_pointwise_t{th}.so"
+        jobs.append((th, lib, subprocess.Popen(
+            [kernels._nvcc(), *kernels.NVCC_FLAGS, f"-DPOINT_THREADS={th}",
+             "-o", str(lib), str(src)], stdout=subprocess.DEVNULL,
+            stderr=subprocess.STDOUT)))
+    vp, i64 = ctypes.c_void_p, ctypes.c_longlong
+    launchers = {}
+    for th, lib, proc in jobs:
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc -DPOINT_THREADS={th} failed")
+        cdll = ctypes.CDLL(str(lib))
+        add, dbl = cdll.curdle_point_add, cdll.curdle_point_double
+        add.argtypes = [vp] * 9 + [i64, vp]
+        dbl.argtypes = [vp] * 6 + [i64, vp]
+        launchers[th] = dict(add=add, double=dbl)
+    stream = torch.cuda.current_stream().cuda_stream
+    for (kind, shape), args in point_ops.items():
+        coords = [t for pt in args for t in pt]
+        out = [torch.empty_like(coords[0]) for _ in range(3)]
+        n = coords[0].numel() // coords[0].shape[-1]
+        ptrs = [t.data_ptr() for t in coords + out]
+        cells = []
+        for th in POINT_THREADS:
+            fn = launchers[th][kind]
+
+            def launch():
+                if fn(*ptrs, n, stream) != 0:
+                    raise RuntimeError(f"point_{kind} at {th} threads a "
+                                       f"block: launch refused")
+            ms = card_ms(launch, f"point_{kind}_kernel")
+            cells.append(f"{th}: {ms:.4f}")
+        print(f"point_{kind} {list(shape)} on the card, ms a launch by "
+              f"threads a block: " + ", ".join(cells), flush=True)
 
 
 def device_prover_kernels(kernels, dev, rng) -> None:

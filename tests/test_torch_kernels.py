@@ -606,6 +606,46 @@ def test_cuda_pointwise_kernels_match_plain(cuda_device):
         kernels.mont_mul(torch.cat([a, a])[0::2], a)
 
 
+POINT_SHAPES = [(1,), (2,), (3,), (4,), (7,), (24,), (33,), (1025,),
+                (4, 1, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", POINT_SHAPES, ids=str)
+def test_cuda_point_add_double_at_path_shapes(cuda_device, shape):
+    """B2 and B3 (one 8-lane group a point) against their plain versions,
+    exact, at the paths' batch sizes and ragged ones, with the corners in
+    the first lanes (infinity in either or both operands, P + P, P + (-P))
+    and P + P through one tensor; the sums against the oracle."""
+    rng = np.random.default_rng(49)
+    n = int(np.prod(shape))
+    pts, qts = _rand_points(rng, 64), _rand_points(rng, 64)
+    pts[0] = None
+    qts[1] = None
+    pts[2] = qts[2] = None
+    qts[3] = pts[3]
+    qts[4] = fh.g1_neg(pts[4])
+    pts, qts = (pts * (n // 64 + 1))[:n], (qts * (n // 64 + 1))[:n]
+
+    def batch(ps):
+        return curve.pmap(lambda t: t.reshape(*shape, fp.NWORDS).contiguous(),
+                          curve.from_affine_host(ps, device=cuda_device))
+
+    pv, qv = batch(pts), batch(qts)
+    kernels.reset_launches()
+    added = kernels.point_add(pv, qv)
+    for got, want in ((added, kernels.point_add_plain(pv, qv)),
+                      (kernels.point_add(pv, pv),
+                       kernels.point_add_plain(pv, pv)),
+                      (kernels.point_double(pv),
+                       kernels.point_double_plain(pv))):
+        assert all(torch.equal(u, v) for u, v in zip(got, want))
+    assert kernels.launches["point_add"] == 2
+    assert kernels.launches["point_double"] == 1
+    assert curve.to_affine_host(added) == [fh.g1_add(p, q)
+                                           for p, q in zip(pts, qts)]
+
+
 @pytest.mark.cuda
 def test_cuda_device_prover_kernels_match_plain(cuda_device):
     """B4, B8, the Fr multiply and the two transcript kernels on the card
