@@ -9,8 +9,9 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
      library or the Python path serves the transcript;
   2. build: compiles the CUDA kernels from ops/csrc/ with nvcc (one process
      per source, started together) and the host C library with cc; ptxas
-     must report no stack frame and no spills for point_add_kernel and
-     point_double_kernel;
+     must report no stack frame and no spills for point_add_kernel,
+     point_double_kernel, every instance of mont_mul_kernel and
+     strobe_challenge32_kernel;
   3. each of the eleven kernels against its plain torch version on the card,
      at the shapes the verifier and the provers give it, compared exactly by
      value (integers, tolerance 0), with timings and roofline bounds;
@@ -21,8 +22,11 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
      windowed_combine and msm_select_reduce also at ragged shapes, at a
      forced split, and at inputs that hit the corners of the complete
      point formulas, each time beside the time of the previous design;
-     the Fp product on 65,536 pairs (every pair of ~45 edge elements, then
-     random ones) and the dedicated square against the product; pow_fixed
+     mont_mul at every batch size the paths give it (one element broadcast
+     on either side, one tensor as both operands) and above the grid-stride
+     limit of its lane teams; the Fp product on 65,536 pairs (every pair of
+     ~45 edge elements, then random ones) and the dedicated square against
+     the product; pow_fixed
      at awkward exponents, with the lone-warp time of one product and one
      square read from its chain; both load stages of point_x16_add with
      every digit on an infinity row and a finite row; the two forms of a
@@ -49,7 +53,8 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
      cold/warm times of both provers side by side; strobe_absorb_stream
      exactly 28 and strobe_challenge32 exactly 22 launches a device prove.
      point_add and point_double are launched exactly 6 and 2 times a
-     verify, 14 and 6 a prove, 64 and 15 a device prove.
+     verify, 14 and 6 a prove, 64 and 15 a device prove, mont_mul 9, 18
+     and 146.
 
 The device prover's kernels (phase 3) are held at the shapes of that path
 and at their corners: the Fr product on 65,536 pairs (every pair of ~40
@@ -59,7 +64,10 @@ product; fr_pow_fixed at [8] and [1] with exponent r - 2 and at awkward
 exponents, with the lone-warp time of one Fr product and one square;
 strobe_absorb_stream at every start position and length that meets an
 edge of the warp's lane words or of the rate, with and without the forced
-permutation, against the plain version and the host STROBE.
+permutation, against the plain version and the host STROBE;
+strobe_challenge32 from every start position 0-165 with labels of 0, 9
+and 32 bytes, at states that take 1, 2 and 3 attempts, against the plain
+version and the host transcript.
 
 Prints the kernel summary as one JSON line, then as the last line
 {"ok": true, "device": {...}}. Any failed check raises: the exit code is
@@ -112,14 +120,16 @@ PROVE_SEED = 0x5EED       # Rand seed of the ELL=124 prove
 # leave as they are
 PATH_LAUNCHES = {
     "verify": dict(windowed_combine=2, msm_select_reduce=2, point_add=6,
-                   point_double=2),
+                   point_double=2, mont_mul=9),
     "prove": dict(windowed_combine=23, msm_select_reduce=21, point_add=14,
-                  point_double=6),
+                  point_double=6, mont_mul=18),
     "device prove": dict(windowed_combine=23, msm_select_reduce=21,
-                         point_add=64, point_double=15),
+                         point_add=64, point_double=15, mont_mul=146),
 }
-# kernels that ptxas must compile with no stack frame and no spills
-NO_STACK_KERNELS = ("point_add_kernel", "point_double_kernel")
+# kernels that ptxas must compile with no stack frame and no spills (every
+# instance of a template)
+NO_STACK_KERNELS = ("point_add_kernel", "point_double_kernel",
+                    "mont_mul_kernel", "strobe_challenge32_kernel")
 
 # The card's peaks for the roofline bound (NVIDIA H100 SXM data sheet and
 # Hopper white paper): 3.35e12 bytes/s of HBM3; 67e12 float32 FLOP/s outside
@@ -297,14 +307,17 @@ def phase_build() -> None:
     print(log)
     report = ptxas_report(log)
     for kernel in NO_STACK_KERNELS:
-        hits = {f: r for f, r in report.items() if kernel in f}
-        check(len(hits) == 1, f"ptxas reports {kernel} once, saw {hits}")
-        (r,) = hits.values()
-        check(r.get("stack") == 0 and r.get("spill_stores") == 0
-              and r.get("spill_loads") == 0,
-              f"{kernel}: no stack frame and no spills, saw {r}")
-        print(f"ptxas: {kernel} {r['registers']} registers, "
-              f"{r['stack']} bytes stack, no spills")
+        # the mangled name carries the length of the plain one: 15mont_mul...
+        # and not 18fr_mont_mul...
+        hits = {f: r for f, r in report.items()
+                if f"{len(kernel)}{kernel}" in f}
+        check(len(hits) >= 1, f"ptxas reports {kernel}, saw {hits}")
+        for f, r in sorted(hits.items()):
+            check(r.get("stack") == 0 and r.get("spill_stores") == 0
+                  and r.get("spill_loads") == 0,
+                  f"{f}: no stack frame and no spills, saw {r}")
+            print(f"ptxas: {f} {r['registers']} registers, "
+                  f"{r['stack']} bytes stack, no spills")
 
 
 def _curve_points(n: int, rng: random.Random):
@@ -421,7 +434,7 @@ def phase_kernels(dev: torch.device) -> dict:
     shapes. Returns {name: {"max_abs_err", "ms", "plain_ms", "bound_ms",
     "bound_by"}} at the kernel's widest main-path shape."""
     from go_curdleproofs_tpu_torch.ops import curve, fp, kernels
-    from go_curdleproofs_tpu_torch.time_kernels import card_ms
+    from go_curdleproofs_tpu_torch.time_kernels import MUL_SHAPES, card_ms
     from go_curdleproofs_tpu_torch.utils import field_host as fh
 
     rng = random.Random(2024)
@@ -463,6 +476,34 @@ def phase_kernels(dev: torch.device) -> dict:
            kernel_ms(lambda: kernels.mont_mul(plane, beta)),
            cuda_ms(lambda: kernels.mont_mul_plain(plane, beta)),
            bound((2 * n + 1) * ELEM_BYTES, n))
+
+    # B1 at every batch the paths give it: both operands, the second one
+    # element (the beta and plain-1 multiplies), the first one element, one
+    # tensor as both; and above the grid-stride limit (132 * 16 blocks)
+    for shape in MUL_SHAPES + [(132 * 16 * 64 + 37,)]:      # 135,205
+        n = 1
+        for d in shape:
+            n *= d
+        xs = fp.from_ints([rng.randrange(fh.P) for _ in range(min(n, 4096))],
+                          dev)
+        u = xs[torch.arange(n, device=dev) % xs.shape[0]].reshape(
+            *shape, fp.NWORDS)
+        v = u.flatten(0, -2).roll(5, 0).reshape(u.shape).contiguous()
+        one = xs[-1].contiguous()
+        for x, y, what in ((u, v, ""), (u, one, " x one element"),
+                           (one, u, ", one element x"), (u, u, " squared")):
+            check(torch.equal(kernels.mont_mul(x, y),
+                              kernels.mont_mul_plain(x, y)),
+                  f"mont_mul {list(shape)}{what}")
+        if shape in MUL_SHAPES:
+            on_card = card_ms(lambda: kernels.mont_mul(u, one),
+                              "mont_mul_kernel")
+            print(f"mont_mul {list(shape)} x one element: on the card "
+                  f"{on_card:.4f} ms a launch")
+    print(f"mont_mul at {[list(s) for s in MUL_SHAPES]} and "
+          f"[{132 * 16 * 64 + 37}], each with both operands, one element on "
+          f"either side and one tensor as both: exact against the plain "
+          f"version")
 
     # the product's carry chains: every pair of the edge elements, word for
     # word against the plain version and Python ints, then random pairs up
@@ -710,25 +751,26 @@ def phase_kernels(dev: torch.device) -> dict:
     return res
 
 
-def _first_attempt_rejected(label: bytes):
-    """A host transcript whose next challenge under `label` is rejected at
-    least once: (state bytes, pos, pos_begin, attempts)."""
+def _state_with_attempts(rng: random.Random, pos: int, pos_begin: int,
+                         label: bytes, attempts: int) -> bytes:
+    """A random STROBE state whose challenge under `label` at (pos,
+    pos_begin) takes exactly `attempts` squeezes (each is rejected with
+    probability 1 - r / 2^256, about 0.55)."""
     from go_curdleproofs_tpu_torch.utils import field_host as fh
     from go_curdleproofs_tpu_torch.utils.transcript import Transcript
 
-    for pre in range(64):
-        def fresh():
-            t = Transcript(b"chip_smoke")
-            t.append_message(b"prefix", bytes(pre))
-            return t
-        probe, attempts = fresh(), 1
-        while int.from_bytes(probe.inner.challenge_bytes(label, 32),
+    for _ in range(1000):
+        state = rng.randbytes(200)
+        t = Transcript(b"chip_smoke")
+        s = t.inner.strobe
+        s.state[:], s.pos, s.pos_begin = state, pos, pos_begin
+        n = 1
+        while int.from_bytes(t.inner.challenge_bytes(label, 32),
                              "big") >= fh.R:
-            attempts += 1
-        if attempts > 1:
-            s = fresh().inner.strobe
-            return bytes(s.state), s.pos, s.pos_begin, attempts
-    raise RuntimeError("no rejected first attempt in 64 prefixes")
+            n += 1
+        if n == attempts:
+            return state
+    raise RuntimeError(f"no state with {attempts} attempts in 1000")
 
 
 def phase_kernels_device_prover(dev: torch.device) -> dict:
@@ -737,6 +779,7 @@ def phase_kernels_device_prover(dev: torch.device) -> dict:
     multiplication side by side."""
     from go_curdleproofs_tpu_torch.models import device_common
     from go_curdleproofs_tpu_torch.ops import curve, fr, kernels, strobe_dev
+    from go_curdleproofs_tpu_torch.time_kernels import card_ms
     from go_curdleproofs_tpu_torch.utils import field_host as fh
     from go_curdleproofs_tpu_torch.utils.transcript import Transcript
 
@@ -1002,26 +1045,56 @@ def phase_kernels_device_prover(dev: torch.device) -> dict:
           "forced permutation: exact against the plain version and the host "
           "STROBE")
 
-    # a challenge whose first attempt is rejected; every attempt runs one
-    # permutation, the final re-absorb stays inside the rate
-    label = b"same_msm_gamma"
-    state, pos, pb, attempts = _first_attempt_rejected(label)
-    st = strobe_dev.bytes_tensor(state, dev)
-    g_st, g_ch = kernels.strobe_challenge32(st, label, pos, pb)
-    w_st, w_ch = kernels.strobe_challenge32_plain(st, label, pos, pb)
-    host = Transcript(b"chip_smoke")
-    host.inner.strobe.state[:] = state
-    host.inner.strobe.pos, host.inner.strobe.pos_begin = pos, pb
-    c = host.get_and_append_challenge(label)
-    check(torch.equal(g_st, w_st) and torch.equal(g_ch, w_ch)
-          and int.from_bytes(bytes(g_ch.tolist()), "big") == c
-          and bytes(g_st.tolist()) == bytes(host.inner.strobe.state),
-          "strobe_challenge32 with a rejected attempt")
-    report("strobe_challenge32", f"{attempts} attempts",
-           kernel_ms(lambda: kernels.strobe_challenge32(st, label, pos, pb)),
-           cuda_ms(lambda: kernels.strobe_challenge32_plain(st, label, pos,
-                                                            pb), 1),
-           bound(400 + 32, attempts, KECCAK_INT32_OPS), keep=True)
+    # the challenge from every start position, labels of 0, 9 and 32 bytes
+    # (headers of 8-40 bytes: inside the rate, crossing it at each kind of
+    # header byte, ending on it), at states that take 1, 2 and 3 attempts
+    # (every retry re-enters at pos 32); pos_begin of each kind
+    n_cases = 0
+    for start in range(kernels.STROBE_R):
+        kinds = (0, start, min(start + 1, kernels.STROBE_R), kernels.STROBE_R)
+        for li, label in enumerate((b"", b"ipa_gamma", bytes(range(65, 97)))):
+            for attempts in (1, 2, 3):
+                pb = kinds[(li + attempts + start) % len(kinds)]
+                state = _state_with_attempts(rng, start, pb, label, attempts)
+                st = strobe_dev.bytes_tensor(state, dev)
+                g_st, g_ch = kernels.strobe_challenge32(st, label, start, pb)
+                w_st, w_ch = kernels.strobe_challenge32_plain(st, label,
+                                                              start, pb)
+                check(torch.equal(g_st, w_st) and torch.equal(g_ch, w_ch),
+                      f"strobe_challenge32 from {start}, pos_begin {pb}, "
+                      f"label of {len(label)} bytes, {attempts} attempts")
+                n_cases += 1
+    print(f"strobe_challenge32 from every start 0-165, labels of 0, 9 and 32 "
+          f"bytes, 1, 2 and 3 attempts ({n_cases} cases): exact against the "
+          f"plain version")
+
+    # timed at 1, 2 and 3 attempts from a mid-rate position, with the host
+    # transcript beside it
+    label, pos, pb = b"same_msm_gamma", 41, 3
+    for attempts in (1, 2, 3):
+        state = _state_with_attempts(rng, pos, pb, label, attempts)
+        st = strobe_dev.bytes_tensor(state, dev)
+        g_st, g_ch = kernels.strobe_challenge32(st, label, pos, pb)
+        host = Transcript(b"chip_smoke")
+        host.inner.strobe.state[:] = state
+        host.inner.strobe.pos, host.inner.strobe.pos_begin = pos, pb
+        c = host.get_and_append_challenge(label)
+        check(int.from_bytes(bytes(g_ch.tolist()), "big") == c
+              and bytes(g_st.tolist()) == bytes(host.inner.strobe.state),
+              f"strobe_challenge32 at {attempts} attempts against the host "
+              f"transcript")
+        report("strobe_challenge32", f"{attempts} attempts",
+               kernel_ms(lambda: kernels.strobe_challenge32(st, label, pos,
+                                                            pb)),
+               cuda_ms(lambda: kernels.strobe_challenge32_plain(
+                   st, label, pos, pb), 1),
+               bound(400 + 32, attempts, KECCAK_INT32_OPS),
+               keep=attempts == 2)
+        on_card = card_ms(lambda: kernels.strobe_challenge32(st, label, pos,
+                                                             pb),
+                          "strobe_challenge32_kernel")
+        print(f"strobe_challenge32 {attempts} attempts: on the card "
+              f"{on_card:.4f} ms a launch")
     return res
 
 

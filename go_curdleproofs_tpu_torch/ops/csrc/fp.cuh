@@ -11,7 +11,9 @@
 // and odd word pairs). Every function takes and returns fully reduced
 // elements, and a Montgomery product with a canonical result is unique, so
 // the kernels give the words of the plain torch versions. The G1 point
-// operations on these elements are in point_coop.cuh.
+// operations on these elements are in point_coop.cuh; the pointwise
+// multiply of up to 4,096 elements spreads one product over a team of
+// four lanes instead (fp_team.cuh), with the same canonical result.
 #pragma once
 
 #include <cstdint>

@@ -2,17 +2,19 @@
 // complete point add, complete point double, and the scalar field's batched
 // multiply and fixed-exponent ladder (fr.cuh on fr_asm.cuh), with a plain C
 // launcher each for ctypes (go_curdleproofs_tpu_torch/ops/kernels.py). The
-// point add and double run on the cooperative point operations of
-// point_coop.cuh, as the fused 16*acc + sel step in kernels.cu does.
+// Fp multiply runs on the team product of fp_team.cuh; the point add and
+// double run on the cooperative point operations of point_coop.cuh, as the
+// fused 16*acc + sel step in kernels.cu does.
 //
 // Every launcher enqueues on the stream it is given, allocates nothing, and
 // returns cudaGetLastError() so that a refused launch reaches the caller.
 // Elements are the port's: 12 int32 words each (read here as uint32,
 // fp.cuh), contiguous, any batch size, no padding to a block. A multiply
-// takes one element a thread, a point operation one point an 8-lane group;
-// both stride over the batch by the grid. Outputs never alias inputs (the
-// wrapper allocates them); the two inputs of a multiply or an add may be the
-// same array (P + P, a * a).
+// takes one element a team of MUL_TEAM lanes (a thread above MUL_TEAM_MAX
+// elements), a point operation one point an 8-lane group; both stride over
+// the batch by the grid. Outputs never
+// alias inputs (the wrapper allocates them); the two inputs of a multiply
+// or an add may be the same array (P + P, a * a).
 //
 // What bounds them on an H100: operations in name. One Montgomery product is
 // 2*144 32x32->64 multiply-adds over 144 bytes moved (two elements in, one
@@ -26,6 +28,7 @@
 #include <cuda_runtime.h>
 
 #include "fp.cuh"
+#include "fp_team.cuh"
 #include "fr.cuh"
 #include "point_coop.cuh"
 
@@ -47,18 +50,113 @@ constexpr int kMaxBlocks = 132 * 16;   // grid-stride beyond this many blocks
 // is 1 (one operand element per output) or 0 (one element broadcast over the
 // batch: the GLV beta multiply of a whole x plane, the multiply by plain 1
 // that leaves Montgomery form), so a broadcast is never materialised.
+// Bound: bytes (2 * 144 multiply-adds over 144 bytes an element), but a
+// launch on the paths holds 1 to 18,432 elements (profile_port.py's
+// histogram: a device prove's 145 launches are 1 to 18 elements but for
+// 16 of 108 to 3,456; a verify's 1,024 and 9,216; a host prove's 256 to
+// 3,456), a warp or a few warps: one element's chain of dependent
+// instructions, its loads and the launch set the time. One thread an
+// element in blocks of 128 (fp_mul_words, 464 SASS instructions in one
+// chain, ~0.9 us for a lone warp; 12 loads at a 48-byte stride that touch
+// 32 sectors each) took 2.2-3.3 us a launch on the card (NVIDIA H100 80GB
+// HBM3, 700.00 W). What the design does about it:
+//   * a team of MUL_TEAM neighbouring lanes an element on fp_team.cuh's
+//     team_mul: 12 rows of 12 / MUL_TEAM multiply-adds and three shuffles
+//     deep, and MUL_TEAM times the warps a launch;
+//   * a team reads and writes its element's 48 bytes together, lane t words
+//     t*K .. t*K + K - 1, so a warp touches 32 / MUL_TEAM neighbouring
+//     elements; a broadcast operand is always b (the launcher swaps the
+//     operands of a commutative product) and every lane holds all of it
+//     from one read before the loop, so its words need no shuffle;
+//   * a warp steps over 32 / MUL_TEAM elements at a time and strides on by
+//     the grid as a whole (beyond kMaxBlocks blocks), so team_mul's
+//     warp-wide shuffles and ballots always find every lane; a team past
+//     the batch multiplies a copy of the last element and stores nothing.
+//     Indices are 64-bit;
+//   * blocks of one warp (MUL_THREADS): a block's warps share one SM, and
+//     the loads of four warps on one SM cost one thread an element 0.7-1.1
+//     us a launch at 108 elements and more;
+//   * above MUL_TEAM_MAX elements one thread an element runs (T = 1, the
+//     same loop as before), which issues a quarter of the team's
+//     instructions (456 SASS instructions against 1,016-1,032 a lane).
+// The readings behind these sizes (time_kernels.py --mul-team, every form
+// built at every batch, lanes x threads a block, us a launch on the card,
+// NVIDIA H100 80GB HBM3, 700.00 W, the second of two runs in one call):
+// at 1 to 3,456 elements times one element 1 x 32: 2.1-2.2, 1 x 128:
+// 2.2-3.3, 2 x 32: 2.3-2.4, 4 x 32: 1.9-2.2, 4 x 128: 2.1; at 9,216
+// elements all 2.7-2.9 but 1 x 128 (3.5); at [9, 1, 2048] 1 x 32: 3.2,
+// 4 x 32: 3.8, 4 x 128: 3.6; 65,536 pairs 1 x 32: 7.7, 4 x 32: 8.1. So 4
+// lanes an element up to 4,096 elements, one thread above, blocks of 32.
+// time_kernels.py --mul-team builds the other forms (-DMUL_TEAM=,
+// -DMUL_THREADS=, -DMUL_TEAM_MAX=).
 
-__global__ void __launch_bounds__(kMulThreads)
-mont_mul_kernel(const Fp* __restrict__ a, const Fp* __restrict__ b,
-                Fp* __restrict__ out, long long n, int a_stride, int b_stride) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += step) {
-    const Fp x = a[i * a_stride];
-    const Fp y = b[i * b_stride];
-    Fp r;
-    curdle::fp_mul(r, x, y);
-    out[i] = r;
+#ifndef MUL_TEAM
+#define MUL_TEAM 4
+#endif
+#ifndef MUL_TEAM_MAX
+#define MUL_TEAM_MAX 4096
+#endif
+#ifndef MUL_THREADS
+#define MUL_THREADS 32
+#endif
+static_assert(MUL_TEAM == 1 || MUL_TEAM == 2 || MUL_TEAM == 4,
+              "a team is 1, 2 or 4 lanes");
+constexpr int kTeamThreads = MUL_THREADS;
+static_assert(kTeamThreads % 32 == 0, "whole warps a block");
+
+template <int T, bool kWhole>
+__global__ void __launch_bounds__(kTeamThreads)
+mont_mul_kernel(const uint32_t* __restrict__ a,
+                const uint32_t* __restrict__ b, uint32_t* __restrict__ out,
+                long long n, int a_stride) {
+  constexpr int NW = curdle::NW;
+  if constexpr (T == 1) {
+    const long long step = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < n; i += step) {
+      const Fp x = reinterpret_cast<const Fp*>(a)[i * a_stride];
+      const Fp y = reinterpret_cast<const Fp*>(b)[kWhole ? 0 : i];
+      Fp r;
+      curdle::fp_mul(r, x, y);
+      reinterpret_cast<Fp*>(out)[i] = r;
+    }
+  } else {
+    constexpr int K = NW / T;
+    const curdle::TeamLane<T> tl = curdle::team_lane<T>();
+    uint32_t p[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) p[j] = curdle::kP[tl.t * K + j];
+    uint32_t y[kWhole ? NW : K];
+    if constexpr (kWhole) {
+#pragma unroll
+      for (int j = 0; j < NW; ++j) y[j] = b[j];
+    }
+    // a warp takes 32 / T neighbouring elements a step and strides on by
+    // the grid as a whole, so its lanes run every step together
+    constexpr int kPerWarp = 32 / T;
+    const long long warp =
+        ((long long)blockIdx.x * kTeamThreads + threadIdx.x) / 32;
+    const long long stride = (long long)gridDim.x * (kTeamThreads / 32);
+    for (long long base = warp * kPerWarp; base < n;
+         base += stride * kPerWarp) {
+      const long long i = base + (threadIdx.x & 31) / T;
+      const long long ic = i < n ? i : n - 1;   // a team past n: a copy
+      const uint32_t* ai = a + ic * a_stride * NW + tl.t * K;
+      uint32_t x[K];
+#pragma unroll
+      for (int j = 0; j < K; ++j) x[j] = ai[j];
+      if constexpr (!kWhole) {
+#pragma unroll
+        for (int j = 0; j < K; ++j) y[j] = b[ic * NW + tl.t * K + j];
+      }
+      uint32_t r[K];
+      curdle::team_mul<T, kWhole>(r, x, y, p, tl);
+      if (i < n) {
+        uint32_t* o = out + i * NW + tl.t * K;
+#pragma unroll
+        for (int j = 0; j < K; ++j) o[j] = r[j];
+      }
+    }
   }
 }
 
@@ -270,6 +368,20 @@ int blocks_for(long long n, int per_block) {
   return (int)(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
+// mont_mul on T lanes an element; `whole`: b is one element for all.
+template <int T>
+int launch_mont_mul(const uint32_t* a, const uint32_t* b, uint32_t* out,
+                    long long n, int a_stride, bool whole, cudaStream_t s) {
+  const int blocks = blocks_for(n, kTeamThreads / T);
+  if (whole)
+    mont_mul_kernel<T, true><<<blocks, kTeamThreads, 0, s>>>(a, b, out, n,
+                                                             a_stride);
+  else
+    mont_mul_kernel<T, false><<<blocks, kTeamThreads, 0, s>>>(a, b, out, n,
+                                                              a_stride);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -281,10 +393,21 @@ extern "C" {
 int curdle_mont_mul(const void* a, const void* b, void* out, long long n,
                     int a_stride, int b_stride, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  mont_mul_kernel<<<blocks_for(n, kMulThreads), kMulThreads, 0,
-                    (cudaStream_t)stream>>>((const Fp*)a, (const Fp*)b,
-                                            (Fp*)out, n, a_stride, b_stride);
-  return (int)cudaGetLastError();
+  if (a_stride == 0 && b_stride != 0) {   // the broadcast operand is b
+    const void* t = a;
+    a = b;
+    b = t;
+    a_stride = b_stride;
+    b_stride = 0;
+  }
+  const uint32_t* x = (const uint32_t*)a;
+  const uint32_t* y = (const uint32_t*)b;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (n <= MUL_TEAM_MAX)
+    return launch_mont_mul<MUL_TEAM>(x, y, (uint32_t*)out, n, a_stride,
+                                     b_stride == 0, s);
+  return launch_mont_mul<1>(x, y, (uint32_t*)out, n, a_stride, b_stride == 0,
+                            s);
 }
 
 int curdle_point_add(const void* px, const void* py, const void* pz,

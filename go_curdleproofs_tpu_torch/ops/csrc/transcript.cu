@@ -14,13 +14,15 @@
 //
 // There is one state and the permutations of a stream are one serial
 // chain, so what bounds a launch is the latency of that chain, neither
-// bytes nor the card's rate. The permutation runs on one warp, in
-// registers: lane i < 25 holds state lane i (x + 5y) as two 32-bit halves,
-// lanes 25-31 idle along. All 24 rounds are unrolled; a round is theta
-// (column parity in three shuffles, D from two), rho (a rotation by the
-// lane's own amount, funnel shifts on the halves), pi (one shuffle from the
-// lane's source lane), chi (two shuffles within the row) and iota on lane
-// 0: eight 64-bit shuffles. The one-thread form before it, out of shared
+// bytes nor the card's rate. Both kernels keep the state in one warp's
+// registers from load to store: lane i < 25 holds state lane i (x + 5y) as
+// two 32-bit halves, lanes 25-31 idle along, and each lane XORs the bytes
+// that fall on its 8 state bytes as two words. The permutation runs on
+// that warp: all 24 rounds are unrolled; a round is theta (column parity
+// in three shuffles, D from two), rho (a rotation by the lane's own
+// amount, funnel shifts on the halves), pi (one shuffle from the lane's
+// source lane), chi (two shuffles within the row) and iota on lane 0:
+// eight 64-bit shuffles. The one-thread form before it, out of shared
 // memory with 63 of 64 threads waiting, took 14.3 us a permutation (NVIDIA
 // H100 80GB HBM3, 700 W).
 // The positions are the static-position engine's (strobe_dev.TState): the
@@ -35,7 +37,6 @@
 namespace {
 
 constexpr int kRate = 166;       // STROBE-128 rate in bytes
-constexpr int kStateBytes = 200;
 constexpr int kLanes = 25;       // state lanes, one a warp lane
 constexpr unsigned kWarp = 0xffffffffu;
 
@@ -57,12 +58,6 @@ __constant__ int kRho[25] = {0,  1,  62, 28, 27, 36, 44, 6,  55, 20, 3,  10, 43,
 // pi: state lane x + 5y takes the rotated lane (x + 3y) % 5 + 5x
 __constant__ int kPiSrc[25] = {0, 6,  12, 18, 24, 3, 9,  10, 16, 22, 1,  7, 13,
                                19, 20, 4, 5, 11, 17, 23, 2, 8, 14, 15, 21};
-
-// r, big-endian: a challenge is accepted when it is below r
-__constant__ uint8_t kRBytesBE[32] = {
-    0x73, 0xed, 0xa7, 0x53, 0x29, 0x9d, 0x7d, 0x48, 0x33, 0x39, 0xd8,
-    0x08, 0x09, 0xa1, 0xd8, 0x05, 0x53, 0xbd, 0xa4, 0x02, 0xff, 0xfe,
-    0x5b, 0xfe, 0xff, 0xff, 0xff, 0xff, 0x00, 0x00, 0x00, 0x01};
 
 // What a warp lane needs of the round: its source lanes and its rotation.
 // Lanes 25-31 take lane 0's; nothing of theirs reaches lanes 0-24.
@@ -232,75 +227,105 @@ strobe_absorb_stream_kernel(const uint8_t* __restrict__ st_in,
 // strobe_challenge32: the transcript's get_and_append_challenge. Squeezes
 // 32-byte challenges under `label` until one is below r (every attempt
 // after the first re-enters at pos 32, pos_begin 0), then absorbs the
-// accepted challenge back as a message under the same label: ~100 bytes
-// and one or two permutations an attempt. The byte-serial control runs on
-// every lane alike (positions are the same on all), lane 0 alone writes
-// the state's bytes in shared memory and decides, and each run_f hands the
-// state to the warp's permutation and back.
+// accepted challenge back as a message under the same label.
+//
+// No TPU kernel stands behind it: the JAX package writes the loop as
+// jax.lax.while_loop (go_curdleproofs_tpu/ops/strobe_dev.py:361-379).
+// Bound: one serial chain of permutations, 1-2 an attempt (2.48 us each on
+// one warp, NVIDIA H100 80GB HBM3, 700 W), and the control between them.
+// The byte-serial form before this one (lane 0 wrote the state byte by
+// byte in shared memory, every permutation moved the state out to the
+// warp's registers and back, the challenge was compared byte by byte on
+// lane 0) took 14.2 us a launch on the card at 2 attempts, of which 5-7.5
+// us were permutations. What this design does about the rest:
+//   * the state stays in registers from load to store, lane i < 25 holding
+//     state lane i as (lo, hi), as in strobe_absorb_stream;
+//   * an attempt's header [pb_old, M|A, label, 32, 0, 0, 0, pb, I|A|C] is
+//     a byte string of label_len + 8 bytes, spread over the warp as words
+//     (lane w holds bytes 4w .. 4w + 3, header_word); every lane computes
+//     the positions alike, and takes the header bytes that fall on its 8
+//     state bytes by three shuffles and two funnel shifts (xor_segment).
+//     The first attempt's header crosses the rate at most once (it is at
+//     most 40 bytes): then it goes in as two segments with a permutation
+//     between, at that crossing's pos_begin. A retry starts at pos 32 and
+//     pos_begin 0 and cannot cross;
+//   * lanes 0-3 squeeze the challenge's 32 bytes from their words and
+//     compare them big-endian with r's, 8 bytes a lane; one ballot of
+//     "less" and one of "greater", and the lowest lane that differs
+//     decides, alike on every lane;
+//   * the accepted challenge is absorbed back at positions 40 + label_len
+//     .. 71 + label_len < 166, no permutation: lanes 0-7 hold its words
+//     and xor_segment moves them to the state lanes by the same shuffles;
+//   * the permutation has one call site, at the end of the attempt loop's
+//     body (keccak_f1600_warp is unrolled and long).
+// Read on the card (time_kernels.py, NVIDIA H100 80GB HBM3, 700.00 W, from
+// position 41, us a launch, old -> new): 1 attempt 7.7 -> 4.4, 2 attempts
+// 11.3 -> 6.9, 3 attempts 14.7-15.6 -> 9.1-9.5: a permutation a attempt
+// (~2.5 us) and ~1.9 us of launch, loads and stores. 88 registers, no
+// stack (ptxas); 1,232 SASS instructions against 2,744.
 
 struct Label {
-  uint8_t b[32];
+  uint32_t w[8];     // little-endian, zero past the label's length
 };
 
-struct Strobe {
-  uint8_t* st;    // the state, in shared memory
-  int pos, pb;
-  Lane l;
-};
+// r's 32 bytes, big-endian, as four big-endian 64-bit words: a challenge
+// is accepted when it is below r
+__constant__ uint64_t kRWordsBE[4] = {
+    0x73eda753299d7d48ull, 0x3339d80809a1d805ull, 0x53bda402fffe5bfeull,
+    0xffffffff00000001ull};
 
-// Not inlined: the unrolled permutation is long, and absorb_byte, begin_op
-// and the squeeze loop would each hold a copy of it.
-__device__ __noinline__ void run_f_shared(Strobe& s, int pos, int pb) {
-  if (s.l.lane == 0) {
-    s.st[pos] ^= (uint8_t)pb;
-    s.st[pos + 1] ^= 0x04;
-    s.st[kRate + 1] ^= 0x80;
-  }
-  __syncwarp();
-  uint32_t* w = reinterpret_cast<uint32_t*>(s.st);
-  uint32_t lo = 0, hi = 0;
-  if (s.l.lane < kLanes) {
-    lo = w[2 * s.l.lane];
-    hi = w[2 * s.l.lane + 1];
-  }
-  keccak_f1600_warp(lo, hi, s.l);
-  if (s.l.lane < kLanes) {
-    w[2 * s.l.lane] = lo;
-    w[2 * s.l.lane + 1] = hi;
-  }
-  __syncwarp();
+__device__ __forceinline__ uint32_t label_word(const Label& label, int w) {
+  uint32_t v = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v = w == j ? label.w[j] : v;
+  return v;
 }
 
-__device__ void absorb_byte(Strobe& s, uint8_t v) {
-  if (s.l.lane == 0) s.st[s.pos] ^= v;
-  if (++s.pos == kRate) {
-    run_f_shared(s, s.pos, s.pb);
-    s.pos = 0;
-    s.pb = 0;
-  }
+// Word w (bytes 4w .. 4w + 3) of an attempt's header
+// [pb_old, M|A, label (len bytes), 32, 0, 0, 0, pb, flag]. `lab` is the
+// label's share of the word, (label word w << 16) | (label word w-1 >> 16).
+__device__ __forceinline__ uint32_t header_word(uint32_t lab, int w, int len,
+                                                int pb_old, int pb,
+                                                int flag) {
+  uint32_t v = lab;
+  if (w == 0) v |= (uint32_t)pb_old | (uint32_t)(kFlagM | kFlagA) << 8;
+  const uint64_t tail =
+      32u | (uint64_t)pb << 32 | (uint64_t)flag << 40;   // at byte 2 + len
+  const int d = 4 * w - (2 + len);                      // tail byte of word w
+  if (d > -4 && d < 6)
+    v |= d >= 0 ? (uint32_t)(tail >> (8 * d)) : (uint32_t)(tail << (-8 * d));
+  return v;
 }
 
-__device__ void begin_op(Strobe& s, uint8_t flags, bool force_f) {
-  const int old = s.pb;
-  s.pb = s.pos + 1;
-  absorb_byte(s, (uint8_t)old);
-  absorb_byte(s, flags);
-  if (force_f && s.pos != 0) {
-    run_f_shared(s, s.pos, s.pb);
-    s.pos = 0;
-    s.pb = 0;
+// Bytes [o, o + 8) of a byte string spread over the warp as words (lane w
+// holds word w), as (lo, hi); zero where the string's lanes run out.
+__device__ __forceinline__ void gather8(uint32_t word, int o, uint32_t& lo,
+                                       uint32_t& hi) {
+  const int q = o >> 2;               // floor, o may be negative
+  const int s = (o & 3) * 8;
+  uint32_t v[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int src = q + k;
+    const uint32_t x = shfl(word, src & 31);
+    v[k] = src >= 0 && src < 32 ? x : 0u;
   }
+  lo = __funnelshift_r(v[0], v[1], s);
+  hi = __funnelshift_r(v[1], v[2], s);
 }
 
-// meta-AD(label), meta-AD(u32le(32), more): the header of a 32-byte message
-// or of a 32-byte challenge.
-__device__ void merlin_header32(Strobe& s, const Label& label, int label_len) {
-  begin_op(s, kFlagM | kFlagA, false);
-  for (int i = 0; i < label_len; ++i) absorb_byte(s, label.b[i]);
-  absorb_byte(s, 32);
-  absorb_byte(s, 0);
-  absorb_byte(s, 0);
-  absorb_byte(s, 0);
+// state bytes [s0, s1) ^= string bytes [h0, h0 + s1 - s0), on the lanes
+// that hold them. Every lane of the warp calls it.
+__device__ __forceinline__ void xor_segment(uint32_t& lo, uint32_t& hi,
+                                            const Lane& l, uint32_t word,
+                                            int s0, int s1, int h0) {
+  uint32_t vlo, vhi;
+  gather8(word, 8 * l.lane - s0 + h0, vlo, vhi);
+  const int from = max(s0 - 8 * l.lane, 0), to = min(s1 - 8 * l.lane, 8);
+  const uint64_t m =
+      from < to ? (~0ull >> (64 - 8 * (to - from))) << (8 * from) : 0ull;
+  lo ^= vlo & (uint32_t)m;
+  hi ^= vhi & (uint32_t)(m >> 32);
 }
 
 __global__ void __launch_bounds__(32)
@@ -308,46 +333,88 @@ strobe_challenge32_kernel(const uint8_t* __restrict__ st_in,
                           uint8_t* __restrict__ st_out,
                           uint8_t* __restrict__ chal_out, Label label,
                           int label_len, int pos, int pos_begin) {
-  __shared__ uint64_t a[kLanes];
-  uint8_t* st = reinterpret_cast<uint8_t*>(a);
-  Strobe s{st, pos, pos_begin, lane_consts()};
-  const bool lead = s.l.lane == 0;
-  for (int i = s.l.lane; i < kStateBytes; i += 32) st[i] = st_in[i];
-  __syncwarp();
-  uint8_t chal[32] = {};      // lane 0's is the challenge
-  bool below;
-  do {
-    merlin_header32(s, label, label_len);
-    begin_op(s, kFlagI | kFlagA | kFlagC, true);
-    for (int i = 0; i < 32; ++i) {
-      if (lead) {
-        chal[i] = st[s.pos];
-        st[s.pos] = 0;
-      }
-      if (++s.pos == kRate) {
-        run_f_shared(s, s.pos, s.pb);
-        s.pos = 0;
-        s.pb = 0;
-      }
+  const Lane l = lane_consts();
+  uint32_t lo = 0, hi = 0;
+  if (l.lane < kLanes) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      lo |= (uint32_t)st_in[8 * l.lane + j] << (8 * j);
+      hi |= (uint32_t)st_in[8 * l.lane + 4 + j] << (8 * j);
     }
-    below = false;
-    if (lead) {
-      for (int i = 0; i < 32; ++i) {
-        if (chal[i] != kRBytesBE[i]) {
-          below = chal[i] < kRBytesBE[i];
-          break;
-        }
-      }
+  }
+  const int len = label_len, nh = len + 8;   // header bytes
+  const uint32_t lab = label_word(label, l.lane) << 16 |
+                       (l.lane > 0 ? label_word(label, l.lane - 1) >> 16 : 0u);
+  // the attempt's header starts at p0 after an operation begun at pb_old;
+  // h: header bytes already absorbed (the first attempt's crossing)
+  int p0 = pos, pb_old = pos_begin, h = 0;
+  uint32_t clo = 0, chi = 0;       // lanes 0-3: the squeezed challenge
+#pragma unroll 1
+  while (true) {
+    const int hc = kRate - p0;              // header bytes before the rate end
+    const bool cross = hc <= nh;
+    const bool early = cross && hc <= 6 + len;   // crossed before I|A|C
+    const uint32_t word = header_word(lab, l.lane, len, pb_old,
+                                      early ? 0 : p0 + 1, kFlagI | kFlagA |
+                                      kFlagC);
+    int s0, s1, fpos, fpb;
+    if (h == 0) {                            // the header from p0
+      s0 = p0;
+      s1 = cross ? kRate : p0 + nh;
+      fpos = s1;
+      fpb = early ? p0 + 1 : p0 + 7 + len;
+    } else {                                 // the rest after the crossing
+      s0 = 0;
+      s1 = nh - h;
+      fpos = s1;
+      fpb = early ? 7 + len - h : 0;
     }
-    below = __shfl_sync(kWarp, below, 0);
-  } while (!below);
-  merlin_header32(s, label, label_len);
-  begin_op(s, kFlagA, false);
-  for (int i = 0; i < 32; ++i) absorb_byte(s, chal[i]);
-  __syncwarp();
-  for (int i = s.l.lane; i < kStateBytes; i += 32) st_out[i] = st[i];
-  if (lead)
-    for (int i = 0; i < 32; ++i) chal_out[i] = chal[i];
+    xor_segment(lo, hi, l, word, s0, s1, h);
+    xor_byte(lo, hi, l, fpos, (uint32_t)fpb);
+    xor_byte(lo, hi, l, fpos + 1, 0x04);
+    xor_byte(lo, hi, l, kRate + 1, 0x80);
+    keccak_f1600_warp(lo, hi, l);            // the one permutation
+    h += s1 - s0;
+    if (h < nh) continue;                    // the crossing: the rest next
+    if (l.lane < 4) {                        // squeeze: bytes 0-31
+      clo = lo;
+      chi = hi;
+      lo = hi = 0;
+    }
+    const uint64_t v =
+        (uint64_t)__byte_perm(clo, 0, 0x0123) << 32 | __byte_perm(chi, 0, 0x0123);
+    const uint64_t r = kRWordsBE[l.lane & 3];
+    const unsigned lt = __ballot_sync(kWarp, l.lane < 4 && v < r);
+    const unsigned gt = __ballot_sync(kWarp, l.lane < 4 && v > r);
+    const unsigned diff = lt | gt;
+    if (lt & diff & (0u - diff)) break;      // the lowest differing lane
+    p0 = 32;                                 // retry from pos 32, pb 0
+    pb_old = 0;
+    h = 0;
+  }
+  // the accepted challenge back, as a message under the label: its header
+  // at 32 (pos_begin 0 before, 33 for the A operation) and the challenge
+  // after it
+  xor_segment(lo, hi, l, header_word(lab, l.lane, len, 0, 33, kFlagA), 32,
+              32 + nh, 0);
+  const uint32_t cx = shfl(clo, (l.lane >> 1) & 3);
+  const uint32_t cy = shfl(chi, (l.lane >> 1) & 3);
+  const uint32_t cw = l.lane < 8 ? (l.lane & 1 ? cy : cx) : 0u;
+  xor_segment(lo, hi, l, cw, 32 + nh, 64 + nh, 0);
+  if (l.lane < kLanes) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      st_out[8 * l.lane + j] = (uint8_t)(lo >> (8 * j));
+      st_out[8 * l.lane + 4 + j] = (uint8_t)(hi >> (8 * j));
+    }
+  }
+  if (l.lane < 4) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      chal_out[8 * l.lane + j] = (uint8_t)(clo >> (8 * j));
+      chal_out[8 * l.lane + 4 + j] = (uint8_t)(chi >> (8 * j));
+    }
+  }
 }
 
 }  // namespace
@@ -373,7 +440,12 @@ int curdle_strobe_challenge32(const void* st_in, void* st_out, void* chal_out,
                               int pos_begin, void* stream) {
   if (label_len < 0 || label_len > 32) return (int)cudaErrorInvalidValue;
   Label l;
-  for (int i = 0; i < 32; ++i) l.b[i] = i < label_len ? label[i] : 0;
+  for (int j = 0; j < 8; ++j) {
+    l.w[j] = 0;
+    for (int k = 0; k < 4; ++k)
+      if (4 * j + k < label_len)
+        l.w[j] |= (uint32_t)label[4 * j + k] << (8 * k);
+  }
   strobe_challenge32_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)st_in, (uint8_t*)st_out, (uint8_t*)chal_out, l,
       label_len, pos, pos_begin);

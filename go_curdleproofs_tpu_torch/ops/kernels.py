@@ -3,6 +3,7 @@
 Each kernel (CUDA C++ for sm_90a; ops/csrc/pointwise.cu holds mont_mul,
 point_add, point_double, fr_mont_mul and fr_pow_fixed, ops/csrc/kernels.cu
 holds pow_fixed, windowed_combine, msm_select_reduce and point_x16_add;
+mont_mul runs on the team product of ops/csrc/fp_team.cuh;
 point_add, point_double and the last three run on the cooperative point
 operations of ops/csrc/point_coop.cuh; ops/csrc/transcript.cu holds
 strobe_absorb_stream and strobe_challenge32; the Fp and Fr arithmetic of
@@ -44,7 +45,7 @@ from . import curve, fp, fr, keccak_dev
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _CU_SOURCES = ("kernels.cu", "pointwise.cu", "transcript.cu")  # a library each
-_SOURCES = ("fp.cuh", "fp_asm.cuh", "fr.cuh", "fr_asm.cuh",
+_SOURCES = ("fp.cuh", "fp_asm.cuh", "fp_team.cuh", "fr.cuh", "fr_asm.cuh",
             "point_coop.cuh") + _CU_SOURCES
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

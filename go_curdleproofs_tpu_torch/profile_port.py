@@ -18,7 +18,14 @@ given:
   * from torch.profiler over the same number of runs: CUDA kernel launches
     per run, device time per run and the device-busy share of the wall time,
     and the device time of the top 8 kernels and of each of the port's own,
-    per run and a launch.
+    per run and a launch;
+  * the elements of each mont_mul launch (B1) in one more run, as a
+    histogram {elements: launches a run}, which is where B1's team size was
+    chosen.
+
+Before the paths it measures the launch floor: the time a launch of a
+one-element torch fill (zero_() on one int32) takes on the card, read by
+the same profiler, which is the least a launch of any kernel takes there.
 
 The section clocks add a synchronise per section, so the sections are timed
 in their own runs, apart from the wall-time runs.
@@ -174,6 +181,57 @@ class PieceClock:
         return out
 
 
+class MulShapes:
+    """Counts the elements of every mont_mul launch (the wrapper's
+    output) while it is entered."""
+
+    def __init__(self):
+        self.hist = defaultdict(int)
+
+    def __enter__(self):
+        self._saved = kernels.mont_mul
+
+        def counted(a, b):
+            out = self._saved(a, b)
+            self.hist[out.numel() // out.shape[-1]] += 1
+            return out
+        kernels.mont_mul = counted
+        return self
+
+    def __exit__(self, *exc):
+        kernels.mont_mul = self._saved
+
+
+def mul_histogram(fn) -> dict:
+    """{elements: launches} of mont_mul over one run of fn."""
+    with MulShapes() as shapes:
+        fn()
+    return {str(k): v for k, v in sorted(shapes.hist.items())}
+
+
+def launch_floor(launches: int = 50) -> dict:
+    """The card's time a launch of a one-element torch fill (zero_() on
+    one int32), from torch.profiler over `launches` launches."""
+    t = torch.zeros(1, dtype=torch.int32, device="cuda")
+    t.zero_()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            t.zero_()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    count = sum(e.count for e in ev)
+    us = sum(e.self_device_time_total for e in ev) / max(count, 1)
+    res = dict(kernels=[e.key[:80] for e in ev], launches=count,
+               device_us_a_launch=us)
+    print(f"== launch floor: one-element zero_(), {count} launches, "
+          f"{us:.3f} us a launch on the card")
+    return res
+
+
 def profile_device_prove(name: str, fn) -> dict:
     fn()                                                  # warm
     walls = [_wall_ms(fn) for _ in range(REPS)]
@@ -203,7 +261,8 @@ def profile_device_prove(name: str, fn) -> dict:
         device_busy_share=device_ms / sum(prof_walls),
         profiled_wall_ms_median=statistics.median(prof_walls),
         port_kernel_launches_per_run=launches,
-        top_device_kernels=_kernel_rows(top))
+        top_device_kernels=_kernel_rows(top),
+        mont_mul_elements_per_launch=mul_histogram(fn))
     print(f"== {name}")
     print(json.dumps(res, indent=1))
     return res
@@ -264,7 +323,8 @@ def profile(name: str, fn) -> dict:
         device_busy_share=device_ms / sum(prof_walls),
         profiled_wall_ms_median=statistics.median(prof_walls),
         port_kernel_launches_per_run=launches,
-        top_device_kernels=_kernel_rows(top))
+        top_device_kernels=_kernel_rows(top),
+        mont_mul_elements_per_launch=mul_histogram(fn))
     print(f"== {name}")
     print(json.dumps(res, indent=1))
     return res
@@ -304,6 +364,7 @@ def main() -> int:
                                            prover="device")
 
     res = dict(card=card, ell=fx["ell"], reps=REPS,
+               launch_floor=launch_floor(),
                verify=profile("verify ELL=124", verify),
                prove=profile("prove ELL=124", prove),
                device_prove=profile_device_prove(

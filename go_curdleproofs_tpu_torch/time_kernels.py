@@ -7,7 +7,8 @@ fr_pow_fixed (B8), fr_mont_mul, strobe_absorb_stream and
 strobe_challenge32.
 
     python3 go_curdleproofs_tpu_torch/time_kernels.py [--root CHECKOUT]
-                        [--splits] [--threads] [--point-threads] [--sass]
+                        [--splits] [--threads] [--point-threads]
+                        [--mul-team] [--sass]
 
 Needs one CUDA card (it fails without one). It imports the port from
 CHECKOUT (default: the checkout this file is in), builds that checkout's
@@ -20,9 +21,11 @@ old again inside one call, and compare. What an old checkout lacks (the
 select stage of point_x16_add) is left out with a note.
 
 A launch that ends before the host's next call reads the wrapper (its
-ctypes call and torch.empty), not the card: point_add and point_double are
-such launches at every shape of the paths. So their lines also give the
-time a launch on the card, from torch.profiler over the same launches.
+ctypes call and torch.empty), not the card: mont_mul, point_add,
+point_double and strobe_challenge32 are such launches at every shape of
+the paths. So their lines also give the time a launch on the card, from
+torch.profiler over the same launches. strobe_challenge32 is timed at
+states whose challenge takes 1, 2 and 3 attempts.
 
 The lone-warp times of one Fp product and one square are read from
 pow_fixed on one element: exponent 2^380 is squarings only, 2^384 - 1 adds
@@ -43,7 +46,14 @@ warp leaves its scheduler idle. --point-threads builds the checkout's
 pointwise.cu at 32, 64 and 128 threads a block of point_add and
 point_double (its POINT_THREADS) into the build directory and times both
 kernels of each build on the card at the paths' shapes, which is how the
-block size of pointwise.cu was chosen. --sass counts the instructions of every
+block size of pointwise.cu was chosen. --mul-team builds pointwise.cu
+with 1, 2 and 4 lanes a mont_mul element (its MUL_TEAM, at every batch
+size: MUL_TEAM_MAX out of reach) and 32 and 128 threads a block
+(MUL_THREADS), and times the multiply of each build on the card at the
+paths' batches and on 65,536 pairs, which is how the team size, the
+block and the batch above which one thread an element runs were
+chosen. --sass counts the
+instructions of every
 kernel in the built libraries with cuobjdump (fr_mont_mul_kernel is one Fr
 product with its loads and stores). Each needs a checkout whose
 wrapper has that argument.
@@ -69,6 +79,17 @@ SPLITS = (1, 2, 4, 8, 16)
 ADD_SHAPES = [(1,), (2,), (4,), (7,), (24,), (33,), (1025,), (4, 1, 1024)]
 DOUBLE_SHAPES = [(1,), (4,), (24,), (1024,), (1025,)]
 POINT_THREADS = (32, 64, 128)
+# elements a launch of B1 on the paths (profile_port.py's histogram: the
+# device prover's 1-18 and 108, the host prover's 256-3,456, the
+# verifier's 1,024 and 9,216) and the [9, 1, 2048] beta multiply, each
+# times one element (chip_smoke.py checks the kernel at these); and both
+# operands at 2048 and 65,536 (the stress)
+MUL_SHAPES = [(1,), (2,), (3,), (4,), (6,), (9,), (10,), (18,), (108,),
+              (256,), (1024,), (1152,), (2304,), (3456,), (9216,),
+              (9, 1, 2048)]
+MUL_PAIRS = [2048, 65536]
+MUL_TEAMS = (1, 2, 4)
+MUL_THREADS = (32, 128)
 
 
 def kernel_ms(fn, launches=20):
@@ -116,6 +137,7 @@ def main() -> int:
     ap.add_argument("--splits", action="store_true")
     ap.add_argument("--threads", action="store_true")
     ap.add_argument("--point-threads", action="store_true")
+    ap.add_argument("--mul-team", action="store_true")
     ap.add_argument("--sass", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
@@ -177,12 +199,20 @@ def main() -> int:
         ms = kernel_ms(lambda: kernels.windowed_combine(part), 10)
         print(f"windowed_combine [{W}, {rows}]: {ms:.4f} ms", flush=True)
 
-    # B1: the beta multiply of a table's x plane
+    # B1: the beta multiply of a table's x plane, then every batch of the
+    # paths on the card
     plane = fp.from_ints([rng.randrange(fh.P) for _ in range(9 * 2048)],
                          dev).reshape(9, 1, 2048, -1)
     beta = curve._beta_elem(dev)
     ms = kernel_ms(lambda: kernels.mont_mul(plane, beta))
     print(f"mont_mul [9, 1, 2048] x one element: {ms:.4f} ms", flush=True)
+    mul_ops = mul_inputs(dev, rng)
+    for (shape, what), (a, b) in mul_ops.items():
+        on_card = card_ms(lambda: kernels.mont_mul(a, b), "mont_mul_kernel")
+        print(f"mont_mul {list(shape)}{what}: on the card {on_card:.4f} ms "
+              f"a launch", flush=True)
+    if args.mul_team:
+        sweep_mul_team(kernels, mul_ops)
 
     # B7: the decoder's sqrt ladder, the provers' inverse ladders
     x = fp.from_ints([rng.randrange(fh.P) for _ in range(1024)], dev)
@@ -282,6 +312,74 @@ def point_inputs(dev, pts):
             out[kind, shape] = ((take(row, 0), take(row, 17))
                                 if kind == "add" else (take(row, 0),))
     return out
+
+
+def mul_inputs(dev, rng):
+    """{(shape, what): (a, b)} for B1: MUL_SHAPES times one element, and
+    MUL_PAIRS of random pairs."""
+    from go_curdleproofs_tpu_torch.ops import fp
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
+
+    xs = fp.from_ints([rng.randrange(fh.P) for _ in range(65536)], dev)
+    out = {}
+    for shape in MUL_SHAPES:
+        n = 1
+        for d in shape:
+            n *= d
+        out[shape, " x one element"] = (
+            xs[:n].reshape(*shape, xs.shape[-1]).contiguous(),
+            xs[-1].contiguous())
+    for n in MUL_PAIRS:
+        out[(n,), " pairs"] = (xs[:n].contiguous(),
+                               xs.flip(0)[:n].contiguous())
+    return out
+
+
+def sweep_mul_team(kernels, mul_ops) -> None:
+    """pointwise.cu built at each of MUL_TEAMS lanes an element, mont_mul
+    of each build timed on the card."""
+    import ctypes
+    import torch
+
+    src = kernels._CSRC / "pointwise.cu"
+    if "MUL_TEAM" not in src.read_text():
+        print("mul team: this checkout's pointwise.cu has no MUL_TEAM",
+              flush=True)
+        return
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    jobs = []
+    for team in MUL_TEAMS:
+        for th in MUL_THREADS:
+            lib = kernels.BUILD_DIR / f"libcurdle_pointwise_m{team}_t{th}.so"
+            jobs.append((f"{team}x{th}", lib, subprocess.Popen(
+                [kernels._nvcc(), *kernels.NVCC_FLAGS, f"-DMUL_TEAM={team}",
+                 f"-DMUL_THREADS={th}", f"-DMUL_TEAM_MAX={1 << 40}", "-o",
+                 str(lib), str(src)],
+                stdout=subprocess.DEVNULL, stderr=subprocess.STDOUT)))
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    launchers = {}
+    for team, lib, proc in jobs:
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc for {team} lanes x threads failed")
+        fn = ctypes.CDLL(str(lib)).curdle_mont_mul
+        fn.argtypes = [vp, vp, vp, i64, i32, i32, vp]
+        launchers[team] = fn
+    stream = torch.cuda.current_stream().cuda_stream
+    for (shape, what), (a, b) in mul_ops.items():
+        out = torch.empty_like(a)
+        n = a.numel() // a.shape[-1]
+        cells = []
+        for team, fn in launchers.items():
+            def launch():
+                if fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, 1,
+                      int(b.shape == a.shape), stream) != 0:
+                    raise RuntimeError(f"mont_mul at {team} lanes an "
+                                       f"element: launch refused")
+            ms = card_ms(launch, "mont_mul_kernel")
+            cells.append(f"{team}: {ms:.4f}")
+        print(f"mont_mul {list(shape)}{what} on the card, ms a launch by "
+              f"lanes an element x threads a block: " + ", ".join(cells),
+              flush=True)
 
 
 def time_point_ops(kernels, point_ops) -> None:
@@ -388,9 +486,28 @@ def device_prover_kernels(kernels, dev, rng) -> None:
     print(f"strobe_absorb_stream {n} bytes from position {pos}: {ms:.4f} ms, "
           f"{pbs.numel()} permutations, {ms / pbs.numel() * 1e3:.3f} us a "
           f"permutation", flush=True)
-    ms = kernel_ms(lambda: kernels.strobe_challenge32(state, b"ipa_gamma",
-                                                      pos, 3))
-    print(f"strobe_challenge32 from position {pos}: {ms:.4f} ms", flush=True)
+    from go_curdleproofs_tpu_torch.utils.transcript import Transcript
+    label, pb, found = b"ipa_gamma", 3, {}
+    while len(found) < 3:              # states that take 1, 2, 3 attempts
+        st = bytes(rng.randrange(256) for _ in range(200))
+        t = Transcript(b"time_kernels")
+        t.inner.strobe.state[:] = st
+        t.inner.strobe.pos, t.inner.strobe.pos_begin = pos, pb
+        n_att = 1
+        while int.from_bytes(t.inner.challenge_bytes(label, 32),
+                             "big") >= fh.R:
+            n_att += 1
+        if n_att <= 3:
+            found.setdefault(n_att, st)
+    for n_att, st in sorted(found.items()):
+        state = torch.tensor(list(st), dtype=torch.uint8, device=dev)
+        ms = kernel_ms(lambda: kernels.strobe_challenge32(state, label, pos,
+                                                          pb))
+        on_card = card_ms(lambda: kernels.strobe_challenge32(
+            state, label, pos, pb), "strobe_challenge32_kernel")
+        print(f"strobe_challenge32 from position {pos}, {n_att} attempts: "
+              f"{ms:.4f} ms, on the card {on_card:.4f} ms a launch",
+              flush=True)
 
 
 def sass_counts(kernels) -> None:
@@ -406,10 +523,13 @@ def sass_counts(kernels) -> None:
         name, counts = None, {}
         for line in out.splitlines():
             if "Function :" in line:
-                # the longest kernel name in the mangled one; a device
-                # function that is not inlined keeps its mangled name
+                # the longest kernel name in the mangled one, with a
+                # template's arguments; a device function that is not
+                # inlined keeps its mangled name
                 hits = [n + "_kernel" for n in names if n + "_kernel" in line]
-                name = hits[-1] if hits else line.split(":", 1)[1].strip()
+                args = re.search(r"_kernelI(\w+?)EEv", line)
+                name = (hits[-1] + (f"<{args.group(1)}>" if args else "")
+                        if hits else line.split(":", 1)[1].strip())
                 counts[name] = [0, 0]
             elif name and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line):
                 counts[name][0] += 1

@@ -606,6 +606,66 @@ def test_cuda_pointwise_kernels_match_plain(cuda_device):
         kernels.mont_mul(torch.cat([a, a])[0::2], a)
 
 
+# batches of the team product on the card: below a team, ragged warps and
+# blocks, the verifier's [9, 1, 2048] plane, and above the grid-stride limit
+# of 2 and 4 lanes a team (132 * 16 blocks of 128 threads)
+MUL_SHAPES = [(1,), (3,), (31,), (33,), (1025,), (9, 1, 2048),
+              (132 * 16 * 64 + 37,)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MUL_SHAPES, ids=str)
+def test_cuda_mont_mul_team_at_batch_sizes(cuda_device, shape):
+    """B1 on its lane teams at every kind of batch, with a broadcast
+    operand on either side and the two operands one tensor, against the
+    plain version word for word."""
+    rng = np.random.default_rng(60)
+    n = int(np.prod(shape))
+    xs = [0, 1, P - 1] + [int.from_bytes(rng.bytes(48), "little") % P
+                          for _ in range(min(n, 4096))]
+    a = fp.from_ints([xs[i % len(xs)] for i in range(n)],
+                     cuda_device).reshape(*shape, 12)
+    b = a.flatten(0, -2).roll(7, 0).reshape(a.shape).contiguous()
+    one = fp.from_ints([xs[-1]], cuda_device)[0]
+    kernels.reset_launches()
+    for u, v in ((a, b), (a, a), (a, one), (one, a)):
+        assert torch.equal(kernels.mont_mul(u, v),
+                           kernels.mont_mul_plain(u, v))
+    assert kernels.launches["mont_mul"] == 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("start", range(166))
+def test_cuda_challenge_from_every_start(cuda_device, start):
+    """strobe_challenge32 on the card from this start, labels of 0, 1, 9
+    and 32 bytes, 1-3 attempts, against the plain version, the host
+    Transcript and the lane model."""
+    import random
+
+    from test_torch_challenge_lanes import (LABELS, _host,
+                                            challenge_lane_model,
+                                            pos_begin_kinds,
+                                            state_with_attempts)
+    rng = random.Random(1000 + start)
+    kinds = pos_begin_kinds(start, rng)
+    for li, label in enumerate(LABELS):
+        for attempts in (1, 2, 3):
+            pb = kinds[(li + attempts + start) % len(kinds)]
+            state = state_with_attempts(rng, start, pb, label, attempts)
+            st = torch.tensor(list(state), dtype=torch.uint8,
+                              device=cuda_device)
+            g_st, g_ch = kernels.strobe_challenge32(st, label, start, pb)
+            w_st, w_ch = kernels.strobe_challenge32_plain(st, label, start,
+                                                          pb)
+            assert torch.equal(g_st, w_st) and torch.equal(g_ch, w_ch)
+            m_st, m_ch, _, _ = challenge_lane_model(state, label, start, pb)
+            assert bytes(g_st.tolist()) == m_st
+            host = _host(state, start, pb)
+            assert int.from_bytes(bytes(g_ch.tolist()), "big") \
+                == host.get_and_append_challenge(label) \
+                == int.from_bytes(m_ch, "big")
+
+
 POINT_SHAPES = [(1,), (2,), (3,), (4,), (7,), (24,), (33,), (1025,),
                 (4, 1, 1024)]
 

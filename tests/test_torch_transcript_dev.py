@@ -68,7 +68,8 @@ def test_transcript_cu_tables_are_keccak():
     (the card compiles them; here they are read back and run on 25 state
     lanes as Python ints against the host permutation), and its copy of
     r."""
-    assert bytes(_cu_table("kRBytesBE")) == fh.R.to_bytes(32, "big")
+    assert b"".join(w.to_bytes(8, "big") for w in _cu_table("kRWordsBE")) \
+        == fh.R.to_bytes(32, "big")
     assert sorted(PI_SRC) == list(range(25)) and len(RHO) == 25
     rotl = lambda x, n: ((x << n) | (x >> (64 - n))) & M64 if n else x
     state = random.Random(2).randbytes(200)
