@@ -10,8 +10,8 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
   2. build: compiles the CUDA kernels from ops/csrc/ with nvcc (one process
      per source, started together) and the host C library with cc; ptxas
      must report no stack frame and no spills for point_add_kernel,
-     point_double_kernel, every instance of mont_mul_kernel and
-     strobe_challenge32_kernel;
+     point_double_kernel, every instance of mont_mul_kernel,
+     fr_mont_mul_kernel and strobe_challenge32_kernel;
   3. each of the eleven kernels against its plain torch version on the card,
      at the shapes the verifier and the provers give it, compared exactly by
      value (integers, tolerance 0), with timings and roofline bounds;
@@ -51,16 +51,34 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
      it fails the run; launch counts of every kernel over that prove
      (point_x16_add exactly 363: 11 window loops of 33 launches);
      cold/warm times of both provers side by side; strobe_absorb_stream
-     exactly 28 and strobe_challenge32 exactly 22 launches a device prove.
-     point_add and point_double are launched exactly 6 and 2 times a
+     exactly 28, strobe_challenge32 exactly 22 and fr_mont_mul exactly 157
+     launches a device prove, and fr_mont_mul at every batch size of that
+     prove (recorded as it runs) exact against its plain version, as
+     pairs and broadcast on either side, with its time a launch on the
+     card. point_add and point_double are launched exactly 6 and 2 times a
      verify, 14 and 6 a prove, 64 and 15 a device prove, mont_mul 9, 18
-     and 146.
+     and 146;
+  7. batched verification (parallel/) on a one-rank NCCL group made from a
+     FileStore: the dry run (a 1,024-base sharded MSM against fh.g1_msm,
+     both fixture proofs through verify_shuffle_proofs_batch), then
+     batches of 2 (the fixture), 8 and 32 distinct ELL=124 proofs (a chain
+     of shuffles from the host prover) accepted, each with one tampered
+     proof rejected, launch counts pinned, warm batch ms and proofs/s on
+     the group and with no group beside the same proofs verified one by
+     one; the inputs of every launch shape of the b32 verify recorded as
+     it runs (msm_select_reduce on 5 rows of 8,192 lanes, windowed_combine
+     and pow_fixed at the decode's sizes, mont_mul, point_add,
+     point_double) and each kernel held there against its plain version;
+     the b32 final MSM's ~19,000 bases through sharded_msm again with two
+     scalars moved by k1, k2, against k1*P1 + k2*P2 on the host.
 
 The device prover's kernels (phase 3) are held at the shapes of that path
 and at their corners: the Fr product on 65,536 pairs (every pair of ~40
 edge elements and of raw first operands up to 2^256 - 1, then random
 ones) against the plain version and Python ints, the square against the
-product; fr_pow_fixed at [8] and [1] with exponent r - 2 and at awkward
+product, the same grid in launches of 512 (the device prove's largest)
+and every edge word broadcast on either side; fr_pow_fixed at [8] and [1]
+with exponent r - 2 and at awkward
 exponents, with the lone-warp time of one Fr product and one square;
 strobe_absorb_stream at every start position and length that meets an
 edge of the warp's lane words or of the rate, with and without the forced
@@ -75,6 +93,7 @@ non-zero and no result line is printed. Without CUDA it exits non-zero.
 Imports neither jax nor the JAX package.
 """
 
+import contextlib
 import hashlib
 import io
 import json
@@ -129,7 +148,8 @@ PATH_LAUNCHES = {
 # kernels that ptxas must compile with no stack frame and no spills (every
 # instance of a template)
 NO_STACK_KERNELS = ("point_add_kernel", "point_double_kernel",
-                    "mont_mul_kernel", "strobe_challenge32_kernel")
+                    "mont_mul_kernel", "fr_mont_mul_kernel",
+                    "strobe_challenge32_kernel")
 
 # The card's peaks for the roofline bound (NVIDIA H100 SXM data sheet and
 # Hopper white paper): 3.35e12 bytes/s of HBM3; 67e12 float32 FLOP/s outside
@@ -199,7 +219,18 @@ PREVIOUS_DESIGN_CARD_MS = {
 MADS_PER_SQUARE = 12 * 13 // 2 + 12 * 12   # 78 partial products, reduction
 FR_MADS_PER_SQUARE = 8 * 9 // 2 + 8 * 8    # 36 partial products, reduction
 # launches of one ELL=124 device prove that a redesign must leave as they are
-DEVICE_PROVE_LAUNCHES = {"fr_pow_fixed": 17, "point_x16_add": 363,
+BATCH_SIZES = (8, 32)     # chained batches, beside the fixture's two proofs
+# wrapper calls of one batch verify of 2, 8 and 32 distinct ELL=124 proofs
+# on a one-rank group (phase 7): one decode and one final MSM whatever the
+# batch; b32's ~19,000 bases take 5 rows of 4,096, added by a tree
+_BATCH_FEW = dict(mont_mul=9, point_add=5, point_double=2, pow_fixed=1,
+                  windowed_combine=2, msm_select_reduce=1, point_x16_add=0,
+                  fr_pow_fixed=0, fr_mont_mul=0, strobe_absorb_stream=0,
+                  strobe_challenge32=0)
+BATCH_LAUNCHES = {2: _BATCH_FEW, 8: _BATCH_FEW,
+                  32: dict(_BATCH_FEW, point_add=7)}
+DEVICE_PROVE_LAUNCHES = {"fr_pow_fixed": 17, "fr_mont_mul": 157,
+                         "point_x16_add": 363,
                          "strobe_absorb_stream": 28,
                          "strobe_challenge32": 22}
 
@@ -866,6 +897,34 @@ def phase_kernels_device_prover(dev: torch.device) -> dict:
           f"and Python ints; fr_pow_fixed(x, 2) == fr_mont_mul(x, x) on all "
           f"65,536")
 
+    # the same grid in launches of at most 512 elements, as the device
+    # prove's, and every edge and raw word broadcast on either side of
+    # [128] lanes
+    ga, gb = _raw_fr(xs[:n_grid], dev), _raw_fr(ys[:n_grid], dev)
+    for lo in range(0, n_grid, 512):
+        hi = min(lo + 512, n_grid)
+        part_a, part_b = ga[lo:hi], gb[lo:hi]
+        got = kernels.fr_mont_mul(part_a, part_b)
+        check(torch.equal(got, kernels.fr_mont_mul_plain(part_a, part_b))
+              and _fr_values(got) == [u * v * r_inv % fh.R for u, v in
+                                      zip(xs[lo:hi], ys[lo:hi])],
+              f"fr_mont_mul edge grid, pairs {lo}-{hi - 1}")
+    lanes = _raw_fr([rng.randrange(1 << 256) for _ in range(128)], dev)
+    canon = fr.from_ints([rng.randrange(fh.R) for _ in range(128)], dev)
+    for u in edge + raw:
+        one = _raw_fr([u], dev)[0]
+        check(torch.equal(kernels.fr_mont_mul(one, canon),
+                          kernels.fr_mont_mul_plain(one, canon)),
+              f"fr_mont_mul {u:#x} broadcast as the first operand")
+        if u < fh.R:                    # the second operand is canonical
+            check(torch.equal(kernels.fr_mont_mul(lanes, one),
+                              kernels.fr_mont_mul_plain(lanes, one)),
+                  f"fr_mont_mul {u:#x} broadcast as the second operand")
+    print(f"fr_mont_mul: the edge grid ({n_grid} pairs) in "
+          f"launches of 512, and {len(edge) + len(raw)} edge and raw words "
+          f"broadcast on either side of [128] lanes (raw on the first side "
+          f"only): exact against the plain version and Python ints")
+
     # the Fr multiply: [128] lanes, and [128] lanes by one element
     vals = [0, 1, fh.R - 1] + [rng.randrange(fh.R) for _ in range(125)]
     a, b = fr.from_ints(vals, dev), fr.from_ints(vals[::-1], dev)
@@ -1295,6 +1354,7 @@ def phase_device_prover(dev: torch.device, card: str, crs, insts, gv,
                                                   device_common,
                                                   device_prover_full, whisk)
     from go_curdleproofs_tpu_torch.ops import kernels
+    from go_curdleproofs_tpu_torch.profile_port import MulShapes
     from go_curdleproofs_tpu_torch.utils.rand import Rand
 
     # From here on the chain between the upload and the one fetch runs
@@ -1342,7 +1402,8 @@ def phase_device_prover(dev: torch.device, card: str, crs, insts, gv,
         seen.update(chains=0, fetches=0)
         kernels.reset_launches()
         t0 = time.perf_counter()
-        post, proof = prove()
+        with MulShapes("fr_mont_mul") as fr_sizes:
+            post, proof = prove()
         torch.cuda.synchronize()
         cold_ms = (time.perf_counter() - t0) * 1e3
         counts = dict(kernels.launches)
@@ -1374,6 +1435,7 @@ def phase_device_prover(dev: torch.device, card: str, crs, insts, gv,
     finally:
         device_prover_full._chain = chain
         device_prover_full.fetch = fetch
+    check_fr_mul_sizes(dev, fr_sizes.hist)
     print("no synchronising call between upload and the one fetch "
           "(chain run under set_sync_debug_mode('error'))")
     print(f"device prove ELL=124: cold {cold_ms:.1f} ms, warm {dev_warm:.1f} "
@@ -1383,6 +1445,249 @@ def phase_device_prover(dev: torch.device, card: str, crs, insts, gv,
           f"byte-identical proofs, verified, flipped byte rejected; "
           f"launches per device prove {counts}")
     return counts
+
+
+def check_fr_mul_sizes(dev: torch.device, hist: dict) -> None:
+    """fr_mont_mul at every batch size of the device prove's histogram
+    {elements: launches}: raw first operands against canonical ones, as
+    pairs and with one element broadcast on either side, exact against the
+    plain version, each with its time a launch on the card."""
+    from go_curdleproofs_tpu_torch.ops import fr, kernels
+    from go_curdleproofs_tpu_torch.time_kernels import card_ms
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
+
+    rng = random.Random(157)
+    print(f"fr_mont_mul elements a launch in the device prove: "
+          f"{dict(sorted(hist.items()))}")
+    for n in sorted(hist):
+        a = _raw_fr([rng.randrange(1 << 256) for _ in range(n)], dev)
+        b = fr.from_ints([rng.randrange(fh.R) for _ in range(n)], dev)
+        one_raw, one = a[0].contiguous(), b[-1].contiguous()
+        for x, y, what in ((a, b, "pairs"), (a, one, "x one element"),
+                           (one_raw, b, "one raw element x")):
+            check(torch.equal(kernels.fr_mont_mul(x, y),
+                              kernels.fr_mont_mul_plain(x, y)),
+                  f"fr_mont_mul [{n}] {what}")
+        pairs, bcast = (card_ms(lambda: kernels.fr_mont_mul(x, y),
+                                "fr_mont_mul_kernel")
+                        for x, y in ((a, b), (a, one)))
+        print(f"fr_mont_mul [{n}] ({hist[n]} launches): exact as pairs and "
+              f"broadcast either side; on the card {pairs:.5f} ms a launch "
+              f"(pairs), {bcast:.5f} (x one element)")
+
+
+# the kernels of a batch verify, held against their plain versions at the
+# inputs the b32 verify gave them
+BATCH_KERNELS = ("mont_mul", "point_add", "point_double", "pow_fixed",
+                 "windowed_combine", "msm_select_reduce")
+
+
+def _shape_key(x):
+    """A hashable description of one argument: a tensor's shape, the
+    shapes of a tuple of tensors, a list's length, or the value."""
+    if isinstance(x, torch.Tensor):
+        return tuple(x.shape)
+    if isinstance(x, (tuple, list)) and x and isinstance(x[0], torch.Tensor):
+        return tuple(_shape_key(t) for t in x)
+    if isinstance(x, (tuple, list)):
+        return len(x)
+    return x
+
+
+def _copy(x):
+    """x with every tensor in it cloned (named tuples keep their type)."""
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, tuple) and hasattr(x, "_fields"):
+        return type(x)(*map(_copy, x))
+    if isinstance(x, (tuple, list)):
+        return type(x)(map(_copy, x))
+    return x
+
+
+class CallInputs:
+    """While entered, keeps a copy of the arguments of the first call of
+    each argument shape to each (module, name) function: {(name, shapes):
+    (args, kwargs)}. The calls themselves run as before, so a wrapper's
+    launch count is its own."""
+
+    def __init__(self, targets):
+        self.targets = targets
+        self.calls = {}
+
+    def __enter__(self):
+        self._saved = [(mod, name, getattr(mod, name))
+                       for mod, name in self.targets]
+        for mod, name, fn in self._saved:
+            def recorded(*args, _name=name, _fn=fn, **kw):
+                key = (_name, tuple(map(_shape_key, args)))
+                if key not in self.calls:
+                    self.calls[key] = (_copy(args), dict(kw))
+                return _fn(*args, **kw)
+            setattr(mod, name, recorded)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def check_batch_kernels(calls: dict, b: int) -> None:
+    """Each kernel of a batch verify on the inputs it was given there (one
+    launch a shape), exact against its plain version on the same inputs
+    (msm_select_reduce by affine value: it sums in another order), with
+    the kernel's time (CUDA events) and the plain version's (host clock,
+    synchronised)."""
+    from go_curdleproofs_tpu_torch.ops import curve, kernels
+
+    seen = set()
+    for (name, key), (args, kw) in calls.items():
+        if name not in BATCH_KERNELS:
+            continue
+        seen.add(name)
+        fn = getattr(kernels, name)
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = getattr(kernels, name + "_plain")(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if isinstance(got, torch.Tensor):
+            err = 0 if torch.equal(got, want) else 1
+        elif name == "msm_select_reduce":
+            err = _affine_err(curve.to_affine_host(got),
+                              curve.to_affine_host(want))
+        else:
+            err = _point_err(got, want)
+        shapes = [k if isinstance(k, tuple) else f"{k.bit_length()}-bit "
+                  f"exponent" for k in key]
+        check(err == 0, f"{name} {shapes} at the b{b} batch verify's inputs")
+        ms = kernel_ms(lambda: fn(*args, **kw), 5)
+        print(f"{name} {shapes} as the b{b} batch verify gave it: exact "
+              f"against the plain version; {ms:.4f} ms a launch, plain "
+              f"{plain_ms:.1f} ms")
+    check(seen == set(BATCH_KERNELS),
+          f"inputs of {sorted(set(BATCH_KERNELS) - seen)} not recorded")
+
+
+def check_batch_msm(calls: dict, b: int, dev: torch.device, group) -> None:
+    """The batch's final MSM again on its own bases, with the scalars of
+    its first, middle and last base moved by k1, k2, k3: the honest sum is
+    infinity, so the result must be k1*P1 + k2*P2 + k3*P3 (host group
+    law). Its rows of bases, the tree that adds them and the Horner tail
+    all take part."""
+    from go_curdleproofs_tpu_torch.ops import curve
+    from go_curdleproofs_tpu_torch.parallel import msm as pmsm
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
+
+    (bases, scalars), _ = next(v for (name, _), v in calls.items()
+                               if name == "sharded_msm")
+    rng = random.Random(b)
+    moved = list(scalars)
+    want = None
+    for j in (0, len(bases) // 2, len(bases) - 1):
+        k = rng.randrange(1, fh.R)
+        moved[j] += k
+        want = fh.g1_add(want, fh.g1_mul(bases[j], k))
+    got = pmsm.sharded_msm(bases, moved, device=dev, group=group)
+    check(want is not None and got == want,
+          f"the b{b} batch's final MSM ({len(bases)} bases) with three "
+          f"scalars moved")
+    rows, width = curve._dynamic_layout(len(bases))
+    print(f"b{b} final MSM, {len(bases)} bases in {rows} rows of {width}: "
+          f"with three scalars moved by k1, k2, k3 it equals k1*P1 + k2*P2 "
+          f"+ k3*P3 on the host")
+
+
+def phase_batch_verify(dev: torch.device, card: str, crs, insts) -> dict:
+    """Batched verification (parallel/) on the card with a one-rank NCCL
+    group made from a FileStore: the dry run, then batches of 2 (the
+    fixture), 8 and 32 distinct ELL=124 proofs accepted, each with one
+    tampered proof rejected, their launch counts pinned, warm batch ms and
+    proofs/s beside the same proofs verified one by one. Returns the launch
+    counts of the b2, b8 and b32 batch verifies, summed."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from go_curdleproofs_tpu_torch.models import whisk
+    from go_curdleproofs_tpu_torch.ops import kernels
+    from go_curdleproofs_tpu_torch.parallel import batch as pbatch
+    from go_curdleproofs_tpu_torch.parallel import dryrun
+    from go_curdleproofs_tpu_torch.parallel import msm as pmsm
+    from go_curdleproofs_tpu_torch.profile_port import chained_proofs
+    from go_curdleproofs_tpu_torch.utils.rand import Rand
+
+    t0 = time.perf_counter()
+    chain = chained_proofs(crs, insts[0][0], max(BATCH_SIZES), device=dev)
+    print(f"{len(chain)} chained proofs from the host prover: "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(len({proof for _, _, proof in chain}) == len(chain),
+          "distinct proofs")
+    batches = {len(insts): list(insts)}
+    batches.update((b, chain[:b]) for b in BATCH_SIZES)
+    torch.cuda.set_device(dev)
+    total = dict.fromkeys(kernels.launches, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        group = pmsm.init_file_group(os.path.join(tmp, "store"), rank=0,
+                                     world_size=1, backend="nccl")
+        try:
+            t0 = time.perf_counter()
+            dryrun.dryrun(crs, insts, device=dev, group=group)
+            torch.cuda.synchronize()
+            print(f"dry run: 1,024-base sharded MSM equals fh.g1_msm, both "
+                  f"ELL=124 fixture proofs accepted through "
+                  f"verify_shuffle_proofs_batch on a one-rank NCCL group "
+                  f"({time.perf_counter() - t0:.1f} s)")
+
+            def verify(batch, grp=group):
+                return pbatch.verify_shuffle_proofs_batch(
+                    crs, batch, Rand(9), device=dev, group=grp)
+
+            for b, batch in batches.items():
+                record = (CallInputs([(kernels, n) for n in BATCH_KERNELS]
+                                     + [(pmsm, "sharded_msm")])
+                          if b == max(BATCH_SIZES)
+                          else contextlib.nullcontext())
+                kernels.reset_launches()
+                with record:
+                    check(verify(batch), f"batch of {b} accepted")
+                torch.cuda.synchronize()
+                counts = dict(kernels.launches)
+                for name in EARLIER_KERNELS:
+                    check(counts[name] > 0,
+                          f"{name} launched by the b{b} batch verify")
+                check(counts == BATCH_LAUNCHES[b],
+                      f"launches of a b{b} batch verify: {counts}, expected "
+                      f"{BATCH_LAUNCHES[b]}")
+                for name, n in counts.items():
+                    total[name] += n
+                pre, post, proof = batch[b // 2]
+                bad = bytearray(proof)
+                bad[SMS_FLIP_BYTE] ^= 0x01
+                tampered = list(batch)
+                tampered[b // 2] = (pre, post, bytes(bad))
+                check(not verify(tampered),
+                      f"batch of {b} with one tampered proof rejected")
+                warm = cuda_ms(lambda: check(verify(batch), "warm batch"))
+                alone = cuda_ms(lambda: check(verify(batch, None),
+                                              "warm batch, no group"))
+                singles = cuda_ms(lambda: check(all(
+                    whisk.is_valid_whisk_shuffle_proof(
+                        crs, *inst, Rand(7), device=dev) for inst in batch),
+                    "single verifies"), 1)
+                print(f"batch verify b{b}: warm {warm:.1f} ms "
+                      f"({b / warm * 1e3:.1f} proofs/s) on the group, "
+                      f"{alone:.1f} ms with no group (the static CRS row "
+                      f"off its table); {b} single verifies {singles:.1f} "
+                      f"ms ({b / singles * 1e3:.1f} proofs/s); tampered "
+                      f"batch rejected; launches {counts}; on {card}")
+                if b == max(BATCH_SIZES):
+                    check_batch_kernels(record.calls, b)
+                    check_batch_msm(record.calls, b, dev, group)
+        finally:
+            dist.destroy_process_group()
+    return total
 
 
 def main() -> int:
@@ -1401,6 +1706,7 @@ def main() -> int:
                                                       gv)
     device_counts = phase_device_prover(dev, card, crs, insts, gv, post,
                                         proof, host_ms)
+    batch_counts = phase_batch_verify(dev, card, crs, insts)
     check("jax" not in sys.modules
           and "go_curdleproofs_tpu" not in sys.modules,
           "neither jax nor the JAX package imported")
@@ -1410,10 +1716,11 @@ def main() -> int:
                     source=CSRC + kernels.KERNEL_SOURCE[name],
                     replaces=REPLACES[name],
                     launches=verify_counts[name] + prove_counts[name]
-                    + device_counts[name],
+                    + device_counts[name] + batch_counts[name],
                     launches_two_verifies=verify_counts[name],
                     launches_one_prove=prove_counts[name],
                     launches_one_device_prove=device_counts[name],
+                    launches_batch_verifies_b2_b8_b32=batch_counts[name],
                     library_ms=None, **timings[name]) for name in REPLACES]
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,8 @@
 // Elements are the port's: 12 int32 words each (read here as uint32,
 // fp.cuh), contiguous, any batch size, no padding to a block. A multiply
 // takes one element a team of MUL_TEAM lanes (a thread above MUL_TEAM_MAX
-// elements), a point operation one point an 8-lane group; both stride over
-// the batch by the grid. Outputs never
+// elements), an Fr multiply one element a thread, a point operation one
+// point an 8-lane group; all stride over the batch by the grid. Outputs never
 // alias inputs (the wrapper allocates them); the two inputs of a multiply
 // or an add may be the same array (P + P, a * a).
 //
@@ -39,7 +39,7 @@ using curdle::kGroupLanes;
 
 namespace {
 
-constexpr int kMulThreads = 128;
+constexpr int kMulThreads = 32;    // fr_mont_mul: one warp a block
 constexpr int kMaxBlocks = 132 * 16;   // grid-stride beyond this many blocks
 
 // ---------------------------------------------------------------------------
@@ -263,7 +263,13 @@ point_double_kernel(const Fp* __restrict__ px, const Fp* __restrict__ py,
 // 2^256, which is how values enter and leave Montgomery form: it is brought
 // below r once here (fr_from_raw), so the product itself, fr_asm.cuh's
 // carry-chained PTX (gen_fp_asm.py), takes canonical operands only.
-// Bound: bytes (2 * 64 multiply-adds over 96 bytes), in practice the launch.
+// Bound: bytes (2 * 64 multiply-adds over 96 bytes), in practice the launch
+// and one element's chain. Blocks of one warp, as B1's: a block's warps
+// load on one SM, and at the device prove's batches (1-512 elements) blocks
+// of 128 took up to 0.2 us a launch more. Teams of 2 or 4 lanes an element
+// on fp_team.cuh were measured against this body and came within 0.07 us
+// of it at those batches, and 1.75x slower at 65,536 (NVIDIA H100 80GB
+// HBM3, 700.00 W), so the one-thread body stays.
 
 __global__ void __launch_bounds__(kMulThreads)
 fr_mont_mul_kernel(const Fr* __restrict__ a, const Fr* __restrict__ b,

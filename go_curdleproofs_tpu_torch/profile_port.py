@@ -21,7 +21,7 @@ given:
     per run and a launch;
   * the elements of each mont_mul launch (B1) in one more run, as a
     histogram {elements: launches a run}, which is where B1's team size was
-    chosen.
+    chosen; for the device prover the same of fr_mont_mul.
 
 Before the paths it measures the launch floor: the time a launch of a
 one-element torch fill (zero_() on one int32) takes on the card, read by
@@ -29,6 +29,10 @@ the same profiler, which is the least a launch of any kernel takes there.
 
 The section clocks add a synchronise per section, so the sections are timed
 in their own runs, apart from the wall-time runs.
+
+Then batched verification (parallel/batch.py) of 8 and 32 distinct ELL=124
+proofs on a one-rank NCCL group, with the same sections (decode, the final
+MSM, the rest: transcript replay) and counts.
 
 For the device-resident prover (prover="device") the sections are its
 pieces, timed with CUDA events recorded in the stream (no synchronise, so
@@ -54,6 +58,8 @@ import torch
 from .models import (curdleproof, device_prover2, device_prover_full,
                      whisk)
 from .ops import codec_batch, curve, kernels
+from .parallel import batch as pbatch
+from .parallel import msm as pmsm
 from .utils.rand import Rand
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -65,6 +71,7 @@ SECTIONS = [
     (codec_batch, "batch_decompress", "decode"),
     (curve, "batch_scalar_mul", "batch_scalar_mul"),
     (curve, "msm_with_static", "final_msm"),
+    (pmsm, "sharded_msm", "final_msm"),
     (curve.StackedVec, "msm_many", "msm_many"),
     (curve, "scalars_to_digits", "inside: host digit recoding"),
     (curve, "to_affine_host", "inside: fetch + host normalisation"),
@@ -182,29 +189,30 @@ class PieceClock:
 
 
 class MulShapes:
-    """Counts the elements of every mont_mul launch (the wrapper's
-    output) while it is entered."""
+    """Counts the elements of every launch of a multiply wrapper
+    (`mont_mul` or `fr_mont_mul`, by its output) while it is entered."""
 
-    def __init__(self):
+    def __init__(self, name: str):
+        self.name = name
         self.hist = defaultdict(int)
 
     def __enter__(self):
-        self._saved = kernels.mont_mul
+        self._saved = getattr(kernels, self.name)
 
         def counted(a, b):
             out = self._saved(a, b)
             self.hist[out.numel() // out.shape[-1]] += 1
             return out
-        kernels.mont_mul = counted
+        setattr(kernels, self.name, counted)
         return self
 
     def __exit__(self, *exc):
-        kernels.mont_mul = self._saved
+        setattr(kernels, self.name, self._saved)
 
 
-def mul_histogram(fn) -> dict:
-    """{elements: launches} of mont_mul over one run of fn."""
-    with MulShapes() as shapes:
+def mul_histogram(fn, name: str = "mont_mul") -> dict:
+    """{elements: launches} of the multiply `name` over one run of fn."""
+    with MulShapes(name) as shapes:
         fn()
     return {str(k): v for k, v in sorted(shapes.hist.items())}
 
@@ -262,7 +270,8 @@ def profile_device_prove(name: str, fn) -> dict:
         profiled_wall_ms_median=statistics.median(prof_walls),
         port_kernel_launches_per_run=launches,
         top_device_kernels=_kernel_rows(top),
-        mont_mul_elements_per_launch=mul_histogram(fn))
+        mont_mul_elements_per_launch=mul_histogram(fn),
+        fr_mont_mul_elements_per_launch=mul_histogram(fn, "fr_mont_mul"))
     print(f"== {name}")
     print(json.dumps(res, indent=1))
     return res
@@ -330,6 +339,48 @@ def profile(name: str, fn) -> dict:
     return res
 
 
+def chained_proofs(crs, pre, count: int, *, device: torch.device,
+                   seed: int = 0xBA7C) -> list:
+    """`count` distinct Whisk shuffle proofs from the host prover, each
+    shuffling the previous one's post-trackers (as block after block does):
+    [(pre, post, proof bytes)]; proof i from Rand(seed + i)."""
+    out = []
+    for i in range(count):
+        post, proof = whisk.generate_whisk_shuffle_proof(
+            crs, pre, Rand(seed + i), device=device)
+        out.append((pre, post, proof))
+        pre = post
+    return out
+
+
+def profile_batches(dev: torch.device, crs, pre) -> dict:
+    """Batched verification of 8 and 32 distinct ELL=124 proofs
+    (chained_proofs) on a one-rank NCCL group made from a FileStore."""
+    import os
+    import tempfile
+
+    import torch.distributed as dist
+
+    chain = chained_proofs(crs, pre, 32, device=dev)
+    torch.cuda.set_device(dev)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        group = pmsm.init_file_group(os.path.join(tmp, "store"), rank=0,
+                                     world_size=1, backend="nccl")
+        try:
+            for b in (8, 32):
+                def verify(batch=chain[:b]):
+                    if not pbatch.verify_shuffle_proofs_batch(
+                            crs, batch, Rand(9), device=dev, group=group):
+                        raise RuntimeError("batch rejected")
+                out[f"batch_verify_b{b}"] = profile(
+                    f"batch verify b{b} ELL=124 (one-rank NCCL group)",
+                    verify)
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_port: CUDA is not available", file=sys.stderr)
@@ -369,6 +420,7 @@ def main() -> int:
                prove=profile("prove ELL=124", prove),
                device_prove=profile_device_prove(
                    "device prove ELL=124 (prover=device)", device_prove))
+    res.update(profile_batches(dev, crs, pre))
     if len(sys.argv) > 1:
         out = Path(sys.argv[1])
         out.parent.mkdir(parents=True, exist_ok=True)

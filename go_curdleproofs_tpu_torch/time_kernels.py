@@ -25,7 +25,10 @@ ctypes call and torch.empty), not the card: mont_mul, point_add,
 point_double and strobe_challenge32 are such launches at every shape of
 the paths. So their lines also give the time a launch on the card, from
 torch.profiler over the same launches. strobe_challenge32 is timed at
-states whose challenge takes 1, 2 and 3 attempts.
+states whose challenge takes 1, 2 and 3 attempts; fr_mont_mul on the card
+at the batches of the device prove's histogram (raw first operands, as
+pairs and with one element broadcast on either side) and on 65,536
+pairs.
 
 The lone-warp times of one Fp product and one square are read from
 pow_fixed on one element: exponent 2^380 is squarings only, 2^384 - 1 adds
@@ -90,6 +93,12 @@ MUL_SHAPES = [(1,), (2,), (3,), (4,), (6,), (9,), (10,), (18,), (108,),
 MUL_PAIRS = [2048, 65536]
 MUL_TEAMS = (1, 2, 4)
 MUL_THREADS = (32, 128)
+# elements a launch of fr_mont_mul in a device prove (profile_port.py's
+# histogram at ELL=124: 1: 38 launches, 2: 12, 3-124: 22, 126-129: 30,
+# 256: 39, 384: 1, 512: 14), as pairs and with one element broadcast on
+# either side; and 65,536 pairs (the stress)
+FR_MUL_SIZES = (1, 2, 3, 4, 8, 16, 32, 64, 98, 126, 128, 129, 256, 384, 512)
+FR_MUL_PAIRS = 65536
 
 
 def kernel_ms(fn, launches=20):
@@ -284,6 +293,12 @@ def main() -> int:
     if args.point_threads:
         sweep_point_threads(kernels, point_ops)
     device_prover_kernels(kernels, dev, rng)
+    fr_ops = fr_mul_inputs(dev, rng)
+    for (n, what), (a, b) in fr_ops.items():
+        on_card = card_ms(lambda: kernels.fr_mont_mul(a, b),
+                          "fr_mont_mul_kernel")
+        print(f"fr_mont_mul [{n}]{what}: on the card {on_card:.5f} ms a "
+              f"launch", flush=True)
     if args.sass:
         sass_counts(kernels)
     return 0
@@ -332,6 +347,28 @@ def mul_inputs(dev, rng):
     for n in MUL_PAIRS:
         out[(n,), " pairs"] = (xs[:n].contiguous(),
                                xs.flip(0)[:n].contiguous())
+    return out
+
+
+def fr_mul_inputs(dev, rng):
+    """{(elements, what): (a, b)} for fr_mont_mul: FR_MUL_SIZES as pairs
+    (raw first operands) and times one element, and FR_MUL_PAIRS pairs."""
+    import torch
+    from go_curdleproofs_tpu_torch.ops import fr
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
+    raw = torch.tensor([[w - (1 << 32) if w >> 31 else w for w in (
+        (v >> (32 * j)) & 0xffffffff for j in range(fr.NWORDS))]
+        for v in (rng.randrange(1 << 256) for _ in range(FR_MUL_PAIRS))],
+        dtype=torch.int32).to(dev)
+    ys = fr.from_ints([rng.randrange(fh.R) for _ in range(FR_MUL_PAIRS)],
+                      dev)
+    out = {}
+    for n in FR_MUL_SIZES:
+        out[n, " pairs"] = (raw[:n].contiguous(), ys[:n].contiguous())
+        out[n, " x one element"] = (raw[:n].contiguous(), ys[-1].contiguous())
+        out[n, " one raw element x"] = (raw[-1].contiguous(),
+                                        ys[:n].contiguous())
+    out[FR_MUL_PAIRS, " pairs"] = (raw, ys)
     return out
 
 

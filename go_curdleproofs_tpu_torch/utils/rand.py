@@ -24,10 +24,22 @@ from .field_host import Affine
 
 class Rand:
     def __init__(self, seed: int):
+        self._seed = seed
         self._shake = hashlib.shake_256()
         self._shake.update(struct.pack(">Q", seed))
         self._consumed = 0
         self._buf = b""
+
+    def __getstate__(self):
+        """Pickled as its seed and position (the XOF object is not
+        picklable), so that ranks of a process group can each take a copy
+        that continues the same stream."""
+        return self._seed, self._consumed
+
+    def __setstate__(self, state):
+        seed, consumed = state
+        self.__init__(seed)
+        self.read(consumed)
 
     def read(self, n: int) -> bytes:
         """Streaming squeeze: successive reads return successive XOF bytes.

@@ -40,7 +40,9 @@ def test_file_list_covers_the_port():
     for needed in ("go_curdleproofs_tpu_torch/utils/field_host.py",
                    "go_curdleproofs_tpu_torch/ops/glv.py",
                    "go_curdleproofs_tpu_torch/models/same_scalar.py",
-                   "go_curdleproofs_tpu_torch/convert.py"):
+                   "go_curdleproofs_tpu_torch/convert.py",
+                   "go_curdleproofs_tpu_torch/parallel/msm.py",
+                   "go_curdleproofs_tpu_torch/parallel/batch.py"):
         assert needed in FILES
 
 
