@@ -57,7 +57,29 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
      pairs and broadcast on either side, with its time a launch on the
      card. point_add and point_double are launched exactly 6 and 2 times a
      verify, 14 and 6 a prove, 64 and 15 a device prove, mont_mul 9, 18
-     and 146;
+     and 146; the counted device prove runs with CURDLE_PROFILE=1 and
+     prints its span table (the spans inside the chain run under the
+     sync-debug mode too);
+  8. (run before phase 7) physical folding, the device MSM entry points,
+     the functional STROBE and ELL=508: one Whisk shuffle at ELL=508
+     (bench.py's headline size; 508 trackers from one batch_scalar_mul on
+     the card) proved with prover="host", verified, a flipped byte
+     rejected, prover="device" byte for byte the same, warm times and
+     launch counts; msm_device at __graft_entry__.entry()'s inputs
+     (rebuilt: 128 multiples of G, 62-bit scalars), at N=512 and over two
+     leading batch dims, msm_windows_device, msm_stacked_device and
+     msm_rows_device at k=3, n=512, m=4 and k=2, n=128, each against
+     fh.g1_msm; DeviceVec folded from the ELL=508 CRS's 512 bases and the
+     ELL=124 CRS's 128 down to one point, each round's msm against
+     FoldedBases.msm_many and the host's fold; StackedVec.fold at
+     [2, 512] with a gamma per row; SState against the host STROBE,
+     Merlin and transcript (40 operations across the rate, the Merlin
+     vector, 6 chained challenges, inputs unchanged), a label over 32
+     bytes refused. Fold rounds, device MSMs and SState operations run
+     under set_sync_debug_mode("error"); one fold round and one
+     msm_device have their launches pinned; every launch shape of the
+     phase is recorded and held against its plain version, with its
+     time on the card and its bound; the phase prints its seconds;
   7. batched verification (parallel/) on a one-rank NCCL group made from a
      FileStore: the dry run (a 1,024-base sharded MSM against fh.g1_msm,
      both fixture proofs through verify_shuffle_proofs_batch), then
@@ -66,11 +88,11 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
      proof rejected, launch counts pinned, warm batch ms and proofs/s on
      the group and with no group beside the same proofs verified one by
      one; the inputs of every launch shape of the b32 verify recorded as
-     it runs (msm_select_reduce on 5 rows of 8,192 lanes, windowed_combine
+     it runs (msm_select_reduce on 3 rows of 8,192 lanes, windowed_combine
      and pow_fixed at the decode's sizes, mont_mul, point_add,
-     point_double) and each kernel held there against its plain version;
-     the b32 final MSM's ~19,000 bases through sharded_msm again with two
-     scalars moved by k1, k2, against k1*P1 + k2*P2 on the host.
+     point_double) and each kernel held there against its plain version,
+     with its time and bound; the b32 final MSM's 11,227 bases through
+     sharded_msm again with three scalars moved, against the host.
 
 The device prover's kernels (phase 3) are held at the shapes of that path
 and at their corners: the Fr product on 65,536 pairs (every pair of ~40
@@ -229,6 +251,12 @@ _BATCH_FEW = dict(mont_mul=9, point_add=5, point_double=2, pow_fixed=1,
                   strobe_challenge32=0)
 BATCH_LAUNCHES = {2: _BATCH_FEW, 8: _BATCH_FEW,
                   32: dict(_BATCH_FEW, point_add=7)}
+# spans of a device prove with CURDLE_PROFILE=1 (the middle six inside the
+# chain, which runs under sync-debug "error")
+DEVICE_PROVE_SPANS = ("dpf.host.step1", "dpf.host.draws", "dpf.upload",
+                      "dpf.sameperm_gpa", "dpf.blinders", "dpf.ipa",
+                      "dpf.step3_sigma", "dpf.samemsm", "dpf.finalize",
+                      "dpf.finalize.enqueue_wait")
 DEVICE_PROVE_LAUNCHES = {"fr_pow_fixed": 17, "fr_mont_mul": 157,
                          "point_x16_add": 363,
                          "strobe_absorb_stream": 28,
@@ -282,6 +310,15 @@ def bound(n_bytes: float, products: float,
     by_ops = products * ops_per_product / INT32_MADS_PER_S * 1e3
     return dict(bound_ms=max(by_bytes, by_ops),
                 bound_by="bytes" if by_bytes >= by_ops else "operations")
+
+
+def msm_bound(dig: torch.Tensor) -> dict:
+    """The bound of one msm_select_reduce over digits [m, n2, W]: the table,
+    the digits and the sums moved once; an add for every nonzero digit (a
+    zero digit selects infinity and needs none)."""
+    m, n2, n_win = dig.shape
+    n_bytes = (3 * 9 * m * n2 + 3 * m * n_win) * ELEM_BYTES + 4 * dig.numel()
+    return bound(n_bytes, int((dig != 0).sum()) * PRODUCTS_ADD)
 
 
 def phase_env(dev: torch.device) -> str:
@@ -672,12 +709,6 @@ def phase_kernels(dev: torch.device) -> dict:
           f"{(t_all - t_sq) / 95 * 1e3:.3f} us, one square "
           f"{(t_sq - t_1) / 380 * 1e3:.3f} us")
 
-    def msm_bound(tab, dig):
-        m, n2 = dig.shape[:2]
-        n_bytes = (3 * 9 * m * n2 + 3 * m * W) * ELEM_BYTES + 4 * dig.numel()
-        # a lane whose digit is zero selects infinity and needs no add
-        return bound(n_bytes, int((dig != 0).sum()) * PRODUCTS_ADD)
-
     def check_msm(tab, dig, keep, split=None, what=""):
         """Two launches in a row (with a split the second finds the scratch
         and the grid as the first left them), then the plain version."""
@@ -695,7 +726,7 @@ def phase_kernels(dev: torch.device) -> dict:
                kernel_ms(lambda: kernels.msm_select_reduce(tab, dig,
                                                            _split=split)),
                cuda_ms(lambda: kernels.msm_select_reduce_plain(tab, dig), 1),
-               msm_bound(tab, dig), keep=keep, what=what)
+               msm_bound(dig), keep=keep, what=what)
         return got, got_aff
 
     def check_combine(sel, keep, what=""):
@@ -1355,6 +1386,7 @@ def phase_device_prover(dev: torch.device, card: str, crs, insts, gv,
                                                   device_prover_full, whisk)
     from go_curdleproofs_tpu_torch.ops import kernels
     from go_curdleproofs_tpu_torch.profile_port import MulShapes
+    from go_curdleproofs_tpu_torch.utils import profiling
     from go_curdleproofs_tpu_torch.utils.rand import Rand
 
     # From here on the chain between the upload and the one fetch runs
@@ -1399,14 +1431,27 @@ def phase_device_prover(dev: torch.device, card: str, crs, insts, gv,
             return whisk.generate_whisk_shuffle_proof(
                 crs, pre, Rand(PROVE_SEED), device=dev, prover=prover)
 
+        # the counted prove runs with the spans on: the ones inside the
+        # chain run under sync-debug "error" with it
         seen.update(chains=0, fetches=0)
         kernels.reset_launches()
+        profiling.reset()
+        os.environ["CURDLE_PROFILE"] = "1"
         t0 = time.perf_counter()
-        with MulShapes("fr_mont_mul") as fr_sizes:
-            post, proof = prove()
-        torch.cuda.synchronize()
+        try:
+            with MulShapes("fr_mont_mul") as fr_sizes:
+                post, proof = prove()
+            torch.cuda.synchronize()
+        finally:
+            del os.environ["CURDLE_PROFILE"]
         cold_ms = (time.perf_counter() - t0) * 1e3
         counts = dict(kernels.launches)
+        spans = profiling.totals()
+        check(set(DEVICE_PROVE_SPANS) <= set(spans),
+              f"the device prove's spans, saw {sorted(spans)}")
+        print("spans of the device prove (CURDLE_PROFILE=1, host clock):")
+        print(profiling.report())
+        profiling.reset()
         check(seen == dict(chains=1, fetches=1),
               f"one chain and one fetch per device prove, saw {seen}")
         check(proof == host_proof and
@@ -1532,42 +1577,150 @@ class CallInputs:
             setattr(mod, name, fn)
 
 
-def check_batch_kernels(calls: dict, b: int) -> None:
-    """Each kernel of a batch verify on the inputs it was given there (one
-    launch a shape), exact against its plain version on the same inputs
+def _challenge_perms(state: bytes, label: bytes, pos: int, pb: int) -> int:
+    """Keccak-f permutations that get_and_append_challenge(label) takes from
+    this STROBE state: a host replica through Merlin, counted."""
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
+    from go_curdleproofs_tpu_torch.utils.merlin import MerlinTranscript
+    from go_curdleproofs_tpu_torch.utils.strobe import Strobe128
+
+    h = Strobe128.__new__(Strobe128)
+    h.state, h.pos, h.pos_begin, h.cur_flags = bytearray(state), pos, pb, 0
+    m = MerlinTranscript.__new__(MerlinTranscript)
+    m.strobe = h
+    seen = [0]
+    run_f = Strobe128._run_f
+
+    def counted(self):
+        seen[0] += 1
+        run_f(self)
+
+    Strobe128._run_f = counted
+    try:
+        chal = m.challenge_bytes(label, 32)
+        while int.from_bytes(chal, "big") >= fh.R:
+            chal = m.challenge_bytes(label, 32)
+        m.append_message(label, chal)
+    finally:
+        Strobe128._run_f = run_f
+    return seen[0]
+
+
+def call_bound(name: str, args, kw) -> dict:
+    """The bound of one launch of kernel `name` on these inputs."""
+    from go_curdleproofs_tpu_torch.ops import kernels
+
+    if name == "mont_mul":
+        a, b = args
+        n = max(a.numel(), b.numel()) // 12
+        return bound((a.numel() + b.numel()) * 4 + n * ELEM_BYTES, n)
+    if name in ("point_add", "point_double"):
+        n = args[0].x.numel() // 12
+        ins = 6 if name == "point_add" else 3
+        return bound((ins + 3) * n * ELEM_BYTES, n * (
+            PRODUCTS_ADD if name == "point_add" else PRODUCTS_DOUBLE))
+    if name == "pow_fixed":
+        x, e = args
+        n, (n_sqr, n_mul) = x.numel() // 12, ladder_steps(e)
+        return bound(2 * n * ELEM_BYTES, n * (
+            n_mul + n_sqr * MADS_PER_SQUARE / MADS_PER_PRODUCT))
+    if name == "windowed_combine":
+        n_win, rows = args[0].x.shape[:2]
+        return bound(3 * (n_win + 1) * rows * ELEM_BYTES, rows * n_win
+                     * (4 * PRODUCTS_DOUBLE + PRODUCTS_ADD))
+    if name == "msm_select_reduce":
+        return msm_bound(args[1])
+    if name == "strobe_absorb_stream":
+        state, stream, pos, pbs = args[:4]
+        final_pb = args[4] if len(args) > 4 else kw.get("final_pb")
+        perms = pbs.numel() + int(final_pb is not None and
+                                  (pos + stream.numel()) % kernels.STROBE_R)
+        return bound(400 + stream.numel() + pbs.numel(), perms,
+                     KECCAK_INT32_OPS)
+    if name == "strobe_challenge32":
+        state, label, pos, pb = args
+        return bound(400 + 32, _challenge_perms(bytes(state.tolist()), label,
+                                                pos, pb), KECCAK_INT32_OPS)
+    raise ValueError(name)
+
+
+def check_recorded_kernels(calls: dict, names, where: str) -> dict:
+    """Each kernel of `names` on the inputs it was given (one launch a
+    recorded shape), exact against its plain version on the same inputs
     (msm_select_reduce by affine value: it sums in another order), with
-    the kernel's time (CUDA events) and the plain version's (host clock,
-    synchronised)."""
+    its time by CUDA events over 5 launches once for each shape of
+    tensors (under ~0.03 ms they read the wrapper), the plain version's
+    (host clock, synchronised) and the bound. (The card's profiler stops
+    reporting kernels after a few thousand in a process, which phases 3-6
+    use up: time_kernels.py gives the time a launch on the card at these
+    shapes in a fresh process.) Returns {name: recorded shapes}."""
     from go_curdleproofs_tpu_torch.ops import curve, kernels
 
-    seen = set()
+    runs, timed = [], {}
     for (name, key), (args, kw) in calls.items():
-        if name not in BATCH_KERNELS:
+        if name not in names:
             continue
-        seen.add(name)
         fn = getattr(kernels, name)
-        got = fn(*args, **kw)
+        runs.append((name, key, args, kw, fn(*args, **kw)))
+        tensors = tuple(k for k in key if isinstance(k, tuple))
+        timed.setdefault((name, tensors),
+                         lambda fn=fn, args=args, kw=kw: fn(*args, **kw))
+    events = {k: kernel_ms(fn, 5) for k, fn in timed.items()}
+    # windowed_combine's plain version takes as long at 1 row as at
+    # thousands (a chain of ~165 plain point operations): its recorded
+    # calls share one plain run over their rows side by side
+    wc = [args[0] for name, _, args, _, _ in runs
+          if name == "windowed_combine"]
+    if wc:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        want = getattr(kernels, name + "_plain")(*args)
+        joint = kernels.windowed_combine_plain(curve.PointVec(
+            *(torch.cat([sel[c] for sel in wc], dim=1) for c in range(3))))
         torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
+        wc_ms = (time.perf_counter() - t0) * 1e3
+        bounds = [0]
+        for sel in wc:
+            bounds.append(bounds[-1] + sel.x.shape[1])
+        wc_want = [curve.pmap(lambda t, a=a, b=b: t[a:b], joint)
+                   for a, b in zip(bounds, bounds[1:])]
+    seen = {}
+    for name, key, args, kw, got in runs:
+        seen[name] = seen.get(name, 0) + 1
+        if name == "windowed_combine":
+            want, plain_ms = wc_want.pop(0), wc_ms
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = getattr(kernels, name + "_plain")(*args, **kw)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
         if isinstance(got, torch.Tensor):
             err = 0 if torch.equal(got, want) else 1
         elif name == "msm_select_reduce":
             err = _affine_err(curve.to_affine_host(got),
                               curve.to_affine_host(want))
+        elif name == "strobe_challenge32":
+            err = 0 if all(map(torch.equal, got, want)) else 1
         else:
             err = _point_err(got, want)
-        shapes = [k if isinstance(k, tuple) else f"{k.bit_length()}-bit "
-                  f"exponent" for k in key]
-        check(err == 0, f"{name} {shapes} at the b{b} batch verify's inputs")
-        ms = kernel_ms(lambda: fn(*args, **kw), 5)
-        print(f"{name} {shapes} as the b{b} batch verify gave it: exact "
-              f"against the plain version; {ms:.4f} ms a launch, plain "
-              f"{plain_ms:.1f} ms")
-    check(seen == set(BATCH_KERNELS),
-          f"inputs of {sorted(set(BATCH_KERNELS) - seen)} not recorded")
+        shapes = [k if isinstance(k, tuple) or not isinstance(k, int)
+                  or name.startswith("strobe") else
+                  f"{k.bit_length()}-bit exponent" for k in key]
+        check(err == 0, f"{name} {shapes} at {where}'s inputs")
+        tkey = (name, tuple(k for k in key if isinstance(k, tuple)))
+        ev = events.pop(tkey, None)
+        if ev is None:
+            continue
+        bnd = call_bound(name, args, kw)
+        print(f"{name} {shapes} as {where} gave it: exact against the plain "
+              f"version; {ev:.4f} ms a launch (CUDA events)"
+              f", bound {bnd['bound_ms']:.3g} ms by {bnd['bound_by']}, "
+              f"plain {plain_ms:.1f} ms"
+              + (f" (one run for the {len(wc)} recorded shapes)"
+                 if name == "windowed_combine" else ""))
+    check(set(seen) == set(names),
+          f"inputs of {sorted(set(names) - set(seen))} not recorded")
+    return seen
 
 
 def check_batch_msm(calls: dict, b: int, dev: torch.device, group) -> None:
@@ -1683,11 +1836,376 @@ def phase_batch_verify(dev: torch.device, card: str, crs, insts) -> dict:
                       f"ms ({b / singles * 1e3:.1f} proofs/s); tampered "
                       f"batch rejected; launches {counts}; on {card}")
                 if b == max(BATCH_SIZES):
-                    check_batch_kernels(record.calls, b)
+                    check_recorded_kernels(record.calls, BATCH_KERNELS,
+                                           f"the b{b} batch verify")
                     check_batch_msm(record.calls, b, dev, group)
         finally:
             dist.destroy_process_group()
     return total
+
+
+# -- phase 8: physical folding, the device MSM entry points, SState, ELL=508
+
+# wrapper calls of one fold round and of one msm_device (every other
+# kernel 0): the table of the h points to multiply (a double, two adds,
+# the beta product), the Horner, the GLV halves' add and the fold's add
+FOLD_ROUND_LAUNCHES = dict(point_add=4, point_double=1, mont_mul=1,
+                           windowed_combine=1)
+MSM_DEVICE_LAUNCHES = dict(point_add=2, point_double=1, mont_mul=1,
+                           msm_select_reduce=1, windowed_combine=1)
+FOLD_KERNELS = ("mont_mul", "point_add", "point_double", "windowed_combine",
+                "msm_select_reduce", "strobe_absorb_stream",
+                "strobe_challenge32")
+ELL_BIG = 508              # bench.py's headline size: n = 512
+CRS_SEED = 0xC0FFEE        # bench.py's CRS seed
+TRACKER_SEED = 0x508
+FOLD_SEED = 0xF01D         # Rand seed of the fold gammas and MSM scalars
+# the merlin crate's test vector: "test protocol", "some label" / "some
+# data", then 32 challenge bytes under "challenge"
+MERLIN_VECTOR = ("d5a21972d0d5fe320c0d263fac7fffb8"
+                 "145aa640af6e9bca177c03c7efcf0615")
+
+
+@contextlib.contextmanager
+def sync_free():
+    """A synchronising call inside raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _launched_since(before: dict) -> dict:
+    from go_curdleproofs_tpu_torch.ops import kernels
+
+    return {k: n - before[k] for k, n in kernels.launches.items()
+            if n != before[k]}
+
+
+def phase_ell508(dev: torch.device, card: str):
+    """One Whisk shuffle at ELL=508 (n = 512): the CRS from bench.py's seed,
+    508 trackers made on the card in one batch_scalar_mul, one prove with
+    prover="host" verified, a flipped byte rejected, prover="device" from
+    the same seeds byte for byte the same; warm times and launch counts.
+    Returns (the CRS, n of the trackers' points, launch counts of the
+    first prove, verify and device prove)."""
+    from go_curdleproofs_tpu_torch.models import curdleproof, whisk
+    from go_curdleproofs_tpu_torch.ops import curve, kernels
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
+    from go_curdleproofs_tpu_torch.utils.rand import Rand
+
+    t0 = time.perf_counter()
+    crs = curdleproof.generate_crs(ELL_BIG, Rand(CRS_SEED), device=dev)
+    r = Rand(TRACKER_SEED)
+    rs, ks = r.get_frs(ELL_BIG), r.get_frs(ELL_BIG)
+    scalars = rs + [a * b % fh.R for a, b in zip(rs, ks)]
+    pts = curve.batch_scalar_mul([fh.G1_GEN] * (2 * ELL_BIG), scalars,
+                                 device=dev)
+    pre = [whisk.WhiskTracker.from_points(pts[i], pts[ELL_BIG + i])
+           for i in range(ELL_BIG)]
+    check(all(p == fh.g1_mul(fh.G1_GEN, x) for p, x in
+              zip(pts[::127], scalars[::127])), "trackers on the card")
+    print(f"ELL={ELL_BIG}: CRS and {ELL_BIG} trackers ({2 * ELL_BIG} points "
+          f"in one batch_scalar_mul) in {time.perf_counter() - t0:.1f} s")
+
+    def prove(prover):
+        return whisk.generate_whisk_shuffle_proof(
+            crs, pre, Rand(PROVE_SEED), device=dev, prover=prover)
+
+    def verify(post, proof):
+        return whisk.is_valid_whisk_shuffle_proof(crs, pre, post, proof,
+                                                  Rand(11), device=dev)
+
+    total = dict.fromkeys(kernels.launches, 0)
+
+    def counted(what, fn):
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(kernels.launches)
+        for k, n in counts.items():
+            total[k] += n
+        print(f"ELL={ELL_BIG} {what}: cold {ms:.1f} ms; launches "
+              f"{ {k: n for k, n in counts.items() if n} }")
+        return out
+
+    post, proof = counted("prove (host)", lambda: prove("host"))
+    check(len(proof) == whisk.expected_shuffle_proof_size(ELL_BIG),
+          f"ELL={ELL_BIG} proof of {len(proof)} bytes")
+    check(counted("verify", lambda: verify(post, proof)),
+          f"ELL={ELL_BIG} proof accepted")
+    bad = bytearray(proof)
+    bad[-20] ^= 0x01           # inside the same-multiscalar scalar x
+    check(not verify(post, bytes(bad)), f"ELL={ELL_BIG} flipped byte rejected")
+    dpost, dproof = counted("prove (device)", lambda: prove("device"))
+    check(dproof == proof and [(t.r_g, t.k_r_g) for t in dpost]
+          == [(t.r_g, t.k_r_g) for t in post],
+          f"ELL={ELL_BIG} prover=device byte-identical to prover=host")
+    host_ms = cuda_ms(lambda: prove("host"), 2)
+    dev_ms = cuda_ms(lambda: check(prove("device")[1] == proof,
+                                   "device prove repeats"), 2)
+    ver_ms = cuda_ms(lambda: check(verify(post, proof), "warm verify"))
+    print(f"ELL={ELL_BIG} ({len(proof)} bytes): proof verified, flipped byte "
+          f"rejected, prover=device byte-identical; warm host prove "
+          f"{host_ms:.1f} ms, device prove {dev_ms:.1f} ms (median of 2), "
+          f"verify {ver_ms:.1f} ms (median of 3) on {card}")
+    return crs, pts[:ELL_BIG + 4], total
+
+
+def check_msm_entry_points(dev: torch.device) -> None:
+    """msm_device at __graft_entry__.entry()'s inputs (rebuilt here: 128
+    multiples of G below 2^30 and 62-bit scalars from numpy's seed 0),
+    its launches pinned, under sync-debug "error"; msm_windows_device's
+    sums combined on the host; N=512 with full-range scalars; two leading
+    batch dims; msm_stacked_device and msm_rows_device at k=3, n=512, m=4
+    and k=2, n=128, every (job, base) pair against the oracle."""
+    import numpy as np
+
+    from go_curdleproofs_tpu_torch.ops import curve, kernels
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
+
+    def digits(rows):
+        return curve._digits(np.stack([curve.scalars_to_digits(r)
+                                       for r in rows]), dev)
+
+    rng = np.random.default_rng(0)
+    pts = [fh.g1_mul(fh.G1_GEN, int(k)) for k in rng.integers(1, 2**30, 128)]
+    scalars = [int(x) for x in rng.integers(1, 2**62, 128)]
+    pv = curve.from_affine_host(pts, device=dev)
+    dig = digits([scalars])[0]
+    before = dict(kernels.launches)
+    with sync_free():
+        out = curve.msm_device(pv, dig)
+    one = _launched_since(before)
+    check(one == MSM_DEVICE_LAUNCHES, f"launches of one msm_device: {one}")
+    want = fh.g1_msm(pts, scalars)
+    check(curve.to_affine_host_single(out) == want,
+          "msm_device at the graft entry's inputs")
+    with sync_free():
+        wins = curve.msm_windows_device(pv, dig)
+    check(fh.g1_combine_windows(curve.to_affine_host(wins),
+                                curve.WINDOW_BITS) == want,
+          "msm_windows_device's sums combined on the host")
+    print(f"msm_device at the graft entry's inputs (n=128, 62-bit scalars) "
+          f"equals fh.g1_msm, launches {one}; msm_windows_device's 33 sums "
+          f"combined on the host the same")
+
+    prng = random.Random(512)
+    full = lambda n: [prng.randrange(fh.R) for _ in range(n)]  # noqa: E731
+    p512 = _curve_points(512, prng)
+    s512 = full(512)
+    with sync_free():
+        out = curve.msm_device(curve.from_affine_host(p512, device=dev),
+                               digits([s512])[0])
+    check(curve.to_affine_host_single(out) == fh.g1_msm(p512, s512),
+          "msm_device N=512, full-range scalars")
+    p6 = _curve_points(6 * 128, prng)
+    s6 = [full(128) for _ in range(6)]
+    pv6 = curve.pmap(lambda t: t.reshape(2, 3, 128, 12),
+                     curve.from_affine_host(p6, device=dev))
+    with sync_free():
+        out = curve.msm_device(pv6, digits(s6).reshape(2, 3, 256, -1))
+    check(curve.to_affine_host(out) == [fh.g1_msm(p6[128 * j:128 * j + 128],
+                                                  s6[j]) for j in range(6)],
+          "msm_device over [2, 3, 128]")
+    print("msm_device at N=512 (full-range scalars) and over two leading "
+          "batch dims [2, 3, 128]: equal to fh.g1_msm")
+
+    for k, n, m in ((3, 512, 4), (2, 128, 2)):
+        rows = [_curve_points(n, prng) for _ in range(k)]
+        scs = [[full(n) for _ in range(k)] for _ in range(m)]
+        pv = curve.pmap(lambda t: t.reshape(k, n, 12),
+                        curve.from_affine_host(sum(rows, []), device=dev))
+        dig = digits(sum(scs, [])).reshape(m, k, 2 * n, -1)
+        picks = [j % k for j in range(m)]
+        with sync_free():
+            stacked = curve.msm_stacked_device(pv, dig)
+            per_row = curve.msm_rows_device(
+                pv, torch.stack([dig[j, b] for j, b in enumerate(picks)]),
+                picks)
+        want = [fh.g1_msm(rows[b], scs[j][b]) for j in range(m)
+                for b in range(k)]
+        check(curve.to_affine_host(stacked) == want,
+              f"msm_stacked_device k={k}, n={n}, m={m}")
+        check(curve.to_affine_host(per_row) == [want[j * k + b] for j, b in
+                                                enumerate(picks)],
+              f"msm_rows_device k={k}, n={n}, rows {picks}")
+        print(f"msm_stacked_device [{m}, {k}] over [{k}, {n}] bases ({m * k} "
+              f"rows of {2 * n} GLV lanes in one msm_select_reduce) and "
+              f"msm_rows_device rows {picks}: every pair equals fh.g1_msm")
+
+
+def check_folds(dev: torch.device, crs124, crs508, other512) -> None:
+    """DeviceVec folded down to one point from the ELL=508 CRS's Gs + Hs
+    (512 bases, 9 rounds) and the ELL=124 CRS's (128, 7 rounds), each
+    round under sync-debug "error"; after each, DeviceVec.msm of fresh
+    scalars equals FoldedBases.msm_many over the same gammas and, at N=128
+    every round and at N=512 in round 1, the host's physical fold, lane
+    for lane. Then StackedVec.fold at [2, 512] with a gamma per row."""
+    from go_curdleproofs_tpu_torch.ops import curve, kernels
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
+    from go_curdleproofs_tpu_torch.utils.rand import Rand
+
+    def host_fold(pts, g):
+        h = len(pts) // 2
+        return [fh.g1_add(pts[i], fh.g1_mul(pts[i + h], g)) for i in range(h)]
+
+    rand = Rand(FOLD_SEED)
+    for what, bases, host_rounds in (
+            (f"ELL={ELL_BIG} CRS Gs + Hs", crs508.gs + crs508.hs, 1),
+            ("ELL=124 CRS Gs + Hs", crs124.gs + crs124.hs, 7)):
+        dv = curve.DeviceVec.from_affine(bases, device=dev)
+        lazy = curve.FoldedBases.from_affine([bases], device=dev)
+        host, rounds, t0 = list(bases), 0, time.perf_counter()
+        while dv.n_valid > 1:
+            g = rand.get_fr()
+            before = dict(kernels.launches)
+            with sync_free():
+                dv = dv.fold(g)
+            if rounds == 0:
+                one = _launched_since(before)
+                check(one == FOLD_ROUND_LAUNCHES,
+                      f"launches of one fold round: {one}")
+            lazy = lazy.fold(g)
+            rounds += 1
+            sc = rand.get_frs(dv.n_valid)
+            got = dv.msm(sc)
+            check(got == lazy.msm_many([[(0, sc, 0)]])[0],
+                  f"{what}: round {rounds}, DeviceVec.msm against the lazy "
+                  f"fold")
+            if rounds <= host_rounds:
+                host = host_fold(host, g)
+                check(curve.to_affine_host(dv.pv) == host
+                      + [None] * (dv.width - len(host))
+                      and got == fh.g1_msm(host, sc),
+                      f"{what}: round {rounds} against the host's fold")
+        check(rounds == dv.width.bit_length() - 1 and dv.to_affine()
+              == lazy.msm_many([[(0, [1], 0)]]), f"{what}: the last point")
+        print(f"DeviceVec from the {what} ({dv.width} bases) folded {rounds} "
+              f"rounds to one point ({time.perf_counter() - t0:.1f} s): each "
+              f"round's msm equals FoldedBases.msm_many, the host's fold "
+              f"lane for lane in {host_rounds} round(s); one round launches "
+              f"{FOLD_ROUND_LAUNCHES}")
+
+    rows = [crs508.gs + crs508.hs, other512]
+    n, h = len(other512), len(other512) // 2
+    gammas = [rand.get_fr(), rand.get_fr()]
+    sv = curve.StackedVec.from_affine(rows, device=dev)
+    sv.table()
+    with sync_free():
+        f = sv.fold(gammas)
+    want = [host_fold(r, g) for r, g in zip(rows, gammas)]
+    check((f.k, f.width, f.n_valid) == (2, n, h) and f._table is None,
+          f"StackedVec.fold [2, {n}]: shape, and a table of its own")
+    check(curve.to_affine_host(f.pv) == sum((w + [None] * h for w in want),
+                                            []),
+          f"StackedVec.fold [2, {n}] against the host's fold, lane for lane")
+    sc = rand.get_frs(h)
+    check(f.msm_many([[(0, sc, 0)], [(1, sc, 0)]])
+          == [fh.g1_msm(w, sc) for w in want],
+          "the folded StackedVec's MSMs off its new table")
+    print(f"StackedVec.fold [2, {n}] with a gamma per row: the host's fold "
+          f"lane for lane; its new table's MSMs equal fh.g1_msm")
+
+
+def check_sstate(dev: torch.device):
+    """SState on the card against the host Strobe128, Merlin and Transcript:
+    40 random meta-AD / AD / PRF operations of 1, 48, 52, 120 and 200
+    bytes, the Merlin test vector, 6 chained challenges; the operations run
+    under sync-debug "error", and every input state is unchanged after its
+    call. Returns the last state."""
+    from go_curdleproofs_tpu_torch.ops import strobe_dev as sd
+    from go_curdleproofs_tpu_torch.utils.merlin import MerlinTranscript
+    from go_curdleproofs_tpu_torch.utils.transcript import Transcript
+
+    rng = random.Random(40)
+    th = Transcript(b"chip_smoke")
+    ops = []
+    for _ in range(40):
+        n = rng.choice([1, 48, 52, 120, 200])
+        ops.append((rng.choice(["meta", "ad", "prf"]),
+                    bytes(rng.randrange(256) for _ in range(n))))
+    s = sd.from_host(th.inner.strobe, device=dev)
+    runs = []                     # (input state, its copy, output state, out)
+    with sync_free():
+        for kind, data in ops:
+            copy = s.st.clone()
+            if kind == "meta":
+                s2, out = sd.meta_ad(s, data, False), None
+            elif kind == "ad":
+                s2, out = sd.ad(s, sd.bytes_tensor(data, dev), False), None
+            else:
+                s2, out = sd.prf(s, len(data))
+            runs.append((s, copy, s2, out))
+            s = s2
+        for _ in range(6):
+            copy = s.st.clone()
+            s2, out = sd.get_and_append_challenge(s, b"c")
+            runs.append((s, copy, s2, out))
+            s = s2
+    h = th.inner.strobe
+    for i, (s_in, copy, s_out, out) in enumerate(runs):
+        if i < len(ops):
+            kind, data = ops[i]
+            if kind == "meta":
+                h.meta_ad(data, False)
+            elif kind == "ad":
+                h.ad(data, False)
+            else:
+                check(bytes(out.tolist()) == h.prf(len(data), False),
+                      f"SState prf of {len(data)} bytes, op {i}")
+        else:
+            check(int.from_bytes(bytes(out.tolist()), "big")
+                  == th.get_and_append_challenge(b"c"),
+                  f"SState challenge {i - len(ops)}")
+        check(torch.equal(s_in.st, copy), f"SState op {i} left its input")
+        check(bytes(s_out.st.tolist()) == bytes(h.state)
+              and (s_out.pos, s_out.pos_begin) == (h.pos, h.pos_begin),
+              f"SState op {i} against the host STROBE")
+    mh = MerlinTranscript(b"test protocol")
+    ms = sd.from_host(mh.strobe, device=dev)
+    mh.append_message(b"some label", b"some data")
+    ms = sd.append_message(ms, b"some label", b"some data")
+    ms, out = sd.challenge_bytes(ms, b"challenge", 32)
+    check(bytes(out.tolist()) == mh.challenge_bytes(b"challenge", 32)
+          == bytes.fromhex(MERLIN_VECTOR), "SState: the Merlin test vector")
+    print("SState: 40 operations of 1-200 bytes across the rate and 6 chained "
+          "challenges as the host STROBE and transcript, no synchronising "
+          "call, every input state unchanged; the Merlin test vector")
+    return s
+
+
+def phase_fold_msm_strobe(dev: torch.device, card: str, crs124) -> tuple:
+    """Phase 8. Returns (launch counts of the fold rounds, device MSMs and
+    SState runs; launch counts of the ELL=508 prove, verify and device
+    prove)."""
+    from go_curdleproofs_tpu_torch.ops import kernels, strobe_dev
+
+    t_phase = time.perf_counter()
+    crs508, other512, ell_counts = phase_ell508(dev, card)
+    kernels.reset_launches()
+    with CallInputs([(kernels, n) for n in FOLD_KERNELS]) as record:
+        check_msm_entry_points(dev)
+        check_folds(dev, crs124, crs508, other512)
+        last = check_sstate(dev)
+    torch.cuda.synchronize()
+    counts = dict(kernels.launches)
+    try:
+        strobe_dev.get_and_append_challenge(last, b"x" * 33)
+    except ValueError:
+        print("SState: a challenge label over 32 bytes raises ValueError")
+    else:
+        check(False, "a challenge label over 32 bytes raises ValueError")
+    for name in FOLD_KERNELS:
+        check(counts[name] > 0, f"{name} launched by phase 8")
+    shapes = check_recorded_kernels(record.calls, FOLD_KERNELS,
+                                    "phase 8 (folds, device MSMs, SState)")
+    print(f"phase 8: launches {counts}; recorded shapes {shapes}; "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}")
+    return counts, ell_counts
 
 
 def main() -> int:
@@ -1706,6 +2224,7 @@ def main() -> int:
                                                       gv)
     device_counts = phase_device_prover(dev, card, crs, insts, gv, post,
                                         proof, host_ms)
+    fold_counts, ell_counts = phase_fold_msm_strobe(dev, card, crs)
     batch_counts = phase_batch_verify(dev, card, crs, insts)
     check("jax" not in sys.modules
           and "go_curdleproofs_tpu" not in sys.modules,
@@ -1716,11 +2235,15 @@ def main() -> int:
                     source=CSRC + kernels.KERNEL_SOURCE[name],
                     replaces=REPLACES[name],
                     launches=verify_counts[name] + prove_counts[name]
-                    + device_counts[name] + batch_counts[name],
+                    + device_counts[name] + batch_counts[name]
+                    + fold_counts[name] + ell_counts[name],
                     launches_two_verifies=verify_counts[name],
                     launches_one_prove=prove_counts[name],
                     launches_one_device_prove=device_counts[name],
                     launches_batch_verifies_b2_b8_b32=batch_counts[name],
+                    launches_fold_msm_strobe=fold_counts[name],
+                    launches_ell508_prove_verify_device_prove=ell_counts[
+                        name],
                     library_ms=None, **timings[name]) for name in REPLACES]
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -36,6 +36,7 @@ import torch
 
 from ..ops import compress_dev, curve, fr, strobe_dev
 from ..ops.curve import PointVec
+from ..utils import profiling
 from ..utils.field_host import Affine
 from ..utils.rand import Rand
 from ..utils.transcript import Transcript
@@ -192,32 +193,35 @@ def prove_ipa_on_device(crs_gs: List[Affine], crs_gs_prime: List[Affine],
     rounds = n.bit_length() - 1
     rs_c, rs_d = inner_product.generate_ipa_blinders(rand, cs, ds)
 
-    if stacked is None:
-        stacked = curve.StackedVec.from_affine([crs_gs, crs_gs_prime],
-                                               device=device, pad_to=n)
-    table = stacked.table()
-    Wg0 = fr_const([1] * n, device)
-    if diag is not None:
-        rows = (0, 0, 0, 0)                         # all on row 0
-        Wgp0 = fr_const(list(diag[:n]) + [0] * (n - min(n, len(diag))),
-                        device)
-    else:
-        rows = (0, 1, 0, 1)
-        Wgp0 = Wg0
-    ts = transcript_to_device(transcript, device)
-    CD = curve.from_affine_host([C, D], device=device)
-    hpt = curve.from_affine_host([crs_h], device=device)
+    with profiling.span("dp2.ipa.setup"):
+        if stacked is None:
+            stacked = curve.StackedVec.from_affine([crs_gs, crs_gs_prime],
+                                                   device=device, pad_to=n)
+        table = stacked.table()
+        Wg0 = fr_const([1] * n, device)
+        if diag is not None:
+            rows = (0, 0, 0, 0)                     # all on row 0
+            Wgp0 = fr_const(list(diag[:n]) + [0] * (n - min(n, len(diag))),
+                            device)
+        else:
+            rows = (0, 1, 0, 1)
+            Wgp0 = Wg0
+        ts = transcript_to_device(transcript, device)
+        CD = curve.from_affine_host([C, D], device=device)
+        hpt = curve.from_affine_host([crs_h], device=device)
 
-    bcd, hcur, csd, dsd = _ipa_setup(
-        table, rows, Wg0, Wgp0, fr_const(rs_c, device), fr_const(rs_d, device),
-        ts, CD, fr_scalar(z, device), fr_const(cs, device),
-        fr_const(ds, device), hpt)
-    lr_blobs, _gammas, csd, dsd = run_ipa_rounds(
-        ts, table, rows, hcur, Wg0, Wgp0, csd, dsd, n)
+        bcd, hcur, csd, dsd = _ipa_setup(
+            table, rows, Wg0, Wgp0, fr_const(rs_c, device),
+            fr_const(rs_d, device), ts, CD, fr_scalar(z, device),
+            fr_const(cs, device), fr_const(ds, device), hpt)
+    with profiling.span("dp2.ipa.rounds"):
+        lr_blobs, _gammas, csd, dsd = run_ipa_rounds(
+            ts, table, rows, hcur, Wg0, Wgp0, csd, dsd, n)
 
-    b_cd_h, c0h, d0h, sstate, *lr_h = fetch(
-        [compress_dev.compress_xy(bcd), fr_bytes_be(csd[:1]),
-         fr_bytes_be(dsd[:1]), ts.st] + lr_blobs)
+    with profiling.span("dp2.ipa.fetch"):
+        b_cd_h, c0h, d0h, sstate, *lr_h = fetch(
+            [compress_dev.compress_xy(bcd), fr_bytes_be(csd[:1]),
+             fr_bytes_be(dsd[:1]), ts.st] + lr_blobs)
 
     pt = compress_dev.decode_xy_host
     proof = inner_product.Proof(
@@ -298,19 +302,23 @@ def prove_samemsm_on_device(G: List[Affine], A: Affine, Z_t: Affine,
     n = len(x)
     rounds = n.bit_length() - 1
     r = rand.get_frs(n)
-    table = curve.StackedVec.from_affine([G, T, U], device=device,
-                                         pad_to=n).table()
-    azz = curve.from_affine_host([A, Z_t, Z_u], device=device)
-    tu_bytes = strobe_dev.bytes_tensor(point_rows(list(T) + list(U)), device)
-    ts = transcript_to_device(transcript, device)
+    with profiling.span("dp2.sm.setup"):
+        table = curve.StackedVec.from_affine([G, T, U], device=device,
+                                             pad_to=n).table()
+        azz = curve.from_affine_host([A, Z_t, Z_u], device=device)
+        tu_bytes = strobe_dev.bytes_tensor(point_rows(list(T) + list(U)),
+                                           device)
+        ts = transcript_to_device(transcript, device)
 
-    b_atu, xd = _sm_setup(table, fr_const(r, device), ts, azz, tu_bytes,
-                          fr_const(x, device))
-    lr_blobs, _gammas, xd = run_sm_rounds(ts, table, xd, n)
+        b_atu, xd = _sm_setup(table, fr_const(r, device), ts, azz, tu_bytes,
+                              fr_const(x, device))
+    with profiling.span("dp2.sm.rounds"):
+        lr_blobs, _gammas, xd = run_sm_rounds(ts, table, xd, n)
 
-    b_h, x0h, sstate, *lr_h = fetch(
-        [compress_dev.compress_xy(b_atu), fr_bytes_be(xd[:1]), ts.st]
-        + lr_blobs)
+    with profiling.span("dp2.sm.fetch"):
+        b_h, x0h, sstate, *lr_h = fetch(
+            [compress_dev.compress_xy(b_atu), fr_bytes_be(xd[:1]), ts.st]
+            + lr_blobs)
 
     pt = compress_dev.decode_xy_host
     proof = same_multiscalar.Proof(

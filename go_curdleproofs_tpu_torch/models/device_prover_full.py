@@ -39,6 +39,7 @@ import torch
 from ..ops import compress_dev, curve, fr, strobe_dev
 from ..ops.curve import PointVec
 from ..utils import field_host as fh
+from ..utils import profiling
 from ..utils.field_host import Affine
 from ..utils.rand import Rand
 from ..utils.transcript import Transcript
@@ -353,52 +354,57 @@ def _chain(inp: _Inputs) -> List[torch.Tensor]:
     ell, ts, table, f = inp.ell, inp.ts, inp.table, inp.scalars
     n = ell + N_BLINDERS
 
-    # same-permutation and grand-product setup
-    A, B, bs, p, rs_b = _piece_sameperm(
-        ts, table, inp.digA, inp.m_bytes, inp.as_rows, f["perm"],
-        f["perm_as"], f["rs_m"], f["rs_ap"], inp.M_gsum, ell)
-    C, cs_full, r_b_plus_alpha, r_p, gp_alpha, gp_beta = _piece_gpa1(
-        ts, table, B, bs, p, rs_b, f["r_cs_pad"], ell)
-    binv = dp2._gamma_inv(gp_beta)
-    CD, z, ds_full, diag, sane_gpa = _piece_gpa2(
-        table, B, C, inp.Gsum_Hsum, bs, cs_full, r_b_plus_alpha, r_p, p,
-        gp_alpha, gp_beta, binv, ell)
+    with profiling.span("dpf.sameperm_gpa"):
+        A, B, bs, p, rs_b = _piece_sameperm(
+            ts, table, inp.digA, inp.m_bytes, inp.as_rows, f["perm"],
+            f["perm_as"], f["rs_m"], f["rs_ap"], inp.M_gsum, ell)
+        C, cs_full, r_b_plus_alpha, r_p, gp_alpha, gp_beta = _piece_gpa1(
+            ts, table, B, bs, p, rs_b, f["r_cs_pad"], ell)
+        binv = dp2._gamma_inv(gp_beta)
+        CD, z, ds_full, diag, sane_gpa = _piece_gpa2(
+            table, B, C, inp.Gsum_Hsum, bs, cs_full, r_b_plus_alpha, r_p, p,
+            gp_alpha, gp_beta, binv, ell)
 
-    # IPA blinders
-    rs_v, zs_pad = f["rs_v"], f["zs_pad"]
-    omega, c_pen = _piece_blind1(rs_v, zs_pad, cs_full, ds_full)
-    inv_c = dp2._gamma_inv(c_pen)
-    term1, term2, blind_nz, c_last = _piece_blind2(
-        rs_v, cs_full, omega, inv_c, f["delta"])
-    rs_d, sane_blind = _piece_blind3(
-        zs_pad, term1, dp2._gamma_inv(term2), inv_c, c_last, omega, rs_v,
-        ds_full, cs_full)
+    with profiling.span("dpf.blinders"):
+        rs_v, zs_pad = f["rs_v"], f["zs_pad"]
+        omega, c_pen = _piece_blind1(rs_v, zs_pad, cs_full, ds_full)
+        inv_c = dp2._gamma_inv(c_pen)
+        term1, term2, blind_nz, c_last = _piece_blind2(
+            rs_v, cs_full, omega, inv_c, f["delta"])
+        rs_d, sane_blind = _piece_blind3(
+            zs_pad, term1, dp2._gamma_inv(term2), inv_c, c_last, omega, rs_v,
+            ds_full, cs_full)
 
     # inner-product argument over the one row [Gs|Hs], Gs' lazy by diag
-    rows0 = (0, 0, 0, 0)
-    bcd, hcur, csd, dsd = dp2._ipa_setup(
-        table, rows0, f["ones"], diag, rs_v, rs_d, ts, CD, z, cs_full,
-        ds_full, point_at(inp.base_pts, 2))
-    ipa_blobs, ipa_gammas, csd, dsd = dp2.run_ipa_rounds(
-        ts, table, rows0, hcur, f["ones"], diag, csd, dsd, n)
+    with profiling.span("dpf.ipa"):
+        rows0 = (0, 0, 0, 0)
+        bcd, hcur, csd, dsd = dp2._ipa_setup(
+            table, rows0, f["ones"], diag, rs_v, rs_d, ts, CD, z, cs_full,
+            ds_full, point_at(inp.base_pts, 2))
+        ipa_blobs, ipa_gammas, csd, dsd = dp2.run_ipa_rounds(
+            ts, table, rows0, hcur, f["ones"], diag, csd, dsd, n)
 
     # step 3 and the sigma protocol: R = <as, Rs>, S = <as, Ss>
-    RS = curve.msm_rows_points_from_table(inp.table_rs, inp.dig_rs, (0, 1))
-    cm_pts, azz, z_kzu = _piece_sigma(
-        ts, RS, A, inp.base_pts, inp.dig12, f["k"], f["r_t"], f["r_u"],
-        f["r_a"], f["r_b"], f["r_k"])
+    with profiling.span("dpf.step3_sigma"):
+        RS = curve.msm_rows_points_from_table(inp.table_rs, inp.dig_rs,
+                                              (0, 1))
+        cm_pts, azz, z_kzu = _piece_sigma(
+            ts, RS, A, inp.base_pts, inp.dig12, f["k"], f["r_t"], f["r_u"],
+            f["r_a"], f["r_b"], f["r_k"])
 
-    # same-multiscalar argument
-    b_atu, xd = dp2._sm_setup(inp.table_sm, f["r_sm"], ts, azz,
-                              inp.tu_bytes, f["x"])
-    sm_blobs, sm_gammas, xd = dp2.run_sm_rounds(ts, inp.table_sm, xd, n)
+    with profiling.span("dpf.samemsm"):
+        b_atu, xd = dp2._sm_setup(inp.table_sm, f["r_sm"], ts, azz,
+                                  inp.tu_bytes, f["x"])
+        sm_blobs, sm_gammas, xd = dp2.run_sm_rounds(ts, inp.table_sm, xd, n)
 
-    rows, sc_be, sane = _piece_finalize(
-        (A, B, C, RS, cm_pts, bcd, b_atu), (r_p, z_kzu),
-        ipa_gammas + sm_gammas + [gp_beta],
-        (sane_gpa, sane_blind, blind_nz))
-    return ([rows, sc_be, sane, fr_bytes_be(csd[:1]), fr_bytes_be(dsd[:1]),
-             fr_bytes_be(xd[:1]), ts.st] + ipa_blobs + sm_blobs)
+    with profiling.span("dpf.finalize"):
+        rows, sc_be, sane = _piece_finalize(
+            (A, B, C, RS, cm_pts, bcd, b_atu), (r_p, z_kzu),
+            ipa_gammas + sm_gammas + [gp_beta],
+            (sane_gpa, sane_blind, blind_nz))
+        return ([rows, sc_be, sane, fr_bytes_be(csd[:1]),
+                 fr_bytes_be(dsd[:1]), fr_bytes_be(xd[:1]), ts.st]
+                + ipa_blobs + sm_blobs)
 
 
 def prove_on_device(crs, Rs: List[Affine], Ss: List[Affine],
@@ -421,25 +427,30 @@ def prove_on_device(crs, Rs: List[Affine], Ss: List[Affine],
     # reference's order (curdleproof.go:60, grandproductargument.go:66,
     # innerproductargument.go:304-305, curdleproof.go:104-106,
     # samescalarargument.go:39-41, samemultiscalarargument.go:55)
-    transcript = Transcript(curdleproof.LABEL_TRANSCRIPT)
-    transcript.append_points(curdleproof.LABEL_STEP1, *Rs)
-    transcript.append_points(curdleproof.LABEL_STEP1, *Ss)
-    transcript.append_points(curdleproof.LABEL_STEP1, *Ts)
-    transcript.append_points(curdleproof.LABEL_STEP1, *Us)
-    transcript.append_points(curdleproof.LABEL_STEP1, M)
-    as_ = transcript.get_and_append_challenges(curdleproof.LABEL_VEC_A, ell)
+    with profiling.span("dpf.host.step1"):
+        transcript = Transcript(curdleproof.LABEL_TRANSCRIPT)
+        transcript.append_points(curdleproof.LABEL_STEP1, *Rs)
+        transcript.append_points(curdleproof.LABEL_STEP1, *Ss)
+        transcript.append_points(curdleproof.LABEL_STEP1, *Ts)
+        transcript.append_points(curdleproof.LABEL_STEP1, *Us)
+        transcript.append_points(curdleproof.LABEL_STEP1, M)
+        as_ = transcript.get_and_append_challenges(curdleproof.LABEL_VEC_A,
+                                                   ell)
 
-    draws = dict(rs_a=rand.get_frs(N_BLINDERS - 2),
-                 r_cs=rand.get_frs(N_BLINDERS),
-                 rs_blind=rand.get_frs(n), zs_blind=rand.get_frs(n - 2))
-    for name in ("r_t", "r_u", "r_a", "r_b", "r_k"):
-        draws[name] = rand.get_fr()
-    draws["r_sm"] = rand.get_frs(n)
+    with profiling.span("dpf.host.draws"):
+        draws = dict(rs_a=rand.get_frs(N_BLINDERS - 2),
+                     r_cs=rand.get_frs(N_BLINDERS),
+                     rs_blind=rand.get_frs(n), zs_blind=rand.get_frs(n - 2))
+        for name in ("r_t", "r_u", "r_a", "r_b", "r_k"):
+            draws[name] = rand.get_fr()
+        draws["r_sm"] = rand.get_frs(n)
 
-    inp = _upload(crs, Rs, Ss, Ts, Us, M, perm, k, rs_m, draws, as_,
-                  transcript, device)
+    with profiling.span("dpf.upload"):
+        inp = _upload(crs, Rs, Ss, Ts, Us, M, perm, k, rs_m, draws, as_,
+                      transcript, device)
     out = _chain(inp)
-    rows_h, sc_h, sane_h, c0h, d0h, x0h, sstate, *blobs_h = fetch(out)
+    with profiling.span("dpf.finalize.enqueue_wait"):
+        rows_h, sc_h, sane_h, c0h, d0h, x0h, sstate, *blobs_h = fetch(out)
     ipa_h, sm_h = blobs_h[:rounds], blobs_h[rounds:]
 
     if not bool(sane_h[0]):

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from ..utils import field_host as fh
+from ..utils import profiling
 from ..utils.field_host import Affine
 from . import fp, glv, halflimb, kernels
 
@@ -119,7 +120,8 @@ def to_affine_host(p: PointVec) -> List[Affine]:
     """Projective -> host affine over the flattened batch: one stacked
     device-to-host copy, then one host batch inversion (Z == 0 is
     infinity, whatever Y holds)."""
-    ints = fp.to_ints(torch.stack([p.x, p.y, p.z]))
+    with profiling.span("to_affine_host.fetch"):
+        ints = fp.to_ints(torch.stack([p.x, p.y, p.z]))
     n = len(ints) // 3
     xs, ys, zs = ints[:n], ints[n:2 * n], ints[2 * n:]
     out: List[Affine] = []
@@ -128,13 +130,19 @@ def to_affine_host(p: PointVec) -> List[Affine]:
     return out
 
 
+def to_affine_host_single(p: PointVec) -> Affine:
+    """One projective point (coordinates [12] or [1, 12]) -> host affine."""
+    return to_affine_host(pmap(lambda t: t.reshape(1, fp.NWORDS), p))[0]
+
+
 def to_affine_host_xy(p: PointVec) -> List[Affine]:
     """Projective -> host affine with the normalisation done on the device
     (compress_dev.compress_xy: the inverse ladder kernel, two products):
     96 bytes per point come back and the host only recomposes ints."""
     from . import compress_dev
-    rows = compress_dev.compress_xy(p).cpu().numpy()
-    return [compress_dev.decode_xy_host(r) for r in rows]
+    with profiling.span("to_affine_host_xy"):
+        rows = compress_dev.compress_xy(p).cpu().numpy()
+        return [compress_dev.decode_xy_host(r) for r in rows]
 
 
 # -- GLV tables, select and reduce ----------------------------------------------
@@ -302,6 +310,95 @@ def msm_rows_points_from_table(table: PointVec, digits: torch.Tensor,
     return horner(msm_rows_windows_from_table(table, digits, rows))
 
 
+# -- device MSM entry points and physical folding -------------------------------
+
+def msm_windows_device(points: PointVec, digits: torch.Tensor) -> PointVec:
+    """Wide phase of independent MSMs: points [..., n], GLV digits
+    [..., 2n, W] -> window sums [..., W], left on the device. The leading
+    dims are flattened to m jobs of one `msm_select_reduce` launch over
+    the table [9, m, 2n] of their own bases."""
+    batch = tuple(points.batch_shape[:-1])
+    n2 = 2 * points.x.shape[-2]
+    if tuple(digits.shape[:-1]) != batch + (n2,):
+        raise ValueError(f"msm_windows_device: digits {tuple(digits.shape)} "
+                         f"do not match points {tuple(points.x.shape)}")
+    table = extend_table_glv(build_table(points))          # [9, ..., 2n]
+    sums = kernels.msm_select_reduce(
+        pmap(lambda t: t.reshape(TABLE_SIZE, -1, n2, fp.NWORDS), table),
+        digits.reshape(-1, n2, digits.shape[-1]).contiguous())   # [m, W]
+    return pmap(lambda t: t.reshape(batch + t.shape[1:]), sums)
+
+
+def msm_device(points: PointVec, digits: torch.Tensor) -> PointVec:
+    """<s, P> of each leading index of points [..., n] (GLV digits
+    [..., 2n, W]) -> [...] points on the device: the wide phase, then one
+    Horner launch (`windowed_combine`)."""
+    return horner(msm_windows_device(points, digits))
+
+
+def msm_stacked_device(points: PointVec, digits: torch.Tensor) -> PointVec:
+    """MSMs of m jobs over k stacked base rows: points [k, n], GLV digits
+    [m, k, 2n, W] -> [m, k] points, out[j, b] = <s_jb, row b>. One table
+    for the k rows; the m*k (job, row) pairs are the rows of one
+    `msm_select_reduce` launch, then one Horner launch."""
+    k, n2 = points.x.shape[0], 2 * points.x.shape[1]
+    m = digits.shape[0]
+    if tuple(digits.shape[:3]) != (m, k, n2):
+        raise ValueError(f"msm_stacked_device: digits {tuple(digits.shape)} "
+                         f"do not match bases {tuple(points.x.shape)}")
+    table = extend_table_glv(build_table(points))          # [9, k, 2n]
+    out = msm_rows_points_from_table(
+        table, digits.reshape(m * k, n2, digits.shape[-1]), list(range(k)) * m)
+    return pmap(lambda t: t.reshape(m, k, fp.NWORDS), out)
+
+
+def msm_rows_windows_device(points: PointVec, digits: torch.Tensor,
+                            rows: Sequence[int]) -> PointVec:
+    """MSM jobs that each take one base row: points [k, n], GLV digits
+    [m, 2n, W], rows [m] host ints -> [m, W] window sums on the device."""
+    return msm_rows_windows_from_table(extend_table_glv(build_table(points)),
+                                       digits, rows)
+
+
+def msm_rows_device(points: PointVec, digits: torch.Tensor,
+                    rows: Sequence[int]) -> PointVec:
+    """`msm_rows_windows_device` with the Horner on the device -> [m]."""
+    return horner(msm_rows_windows_device(points, digits, rows))
+
+
+def fold_device(pv: PointVec, digits: torch.Tensor, h: int) -> PointVec:
+    """One folding round's base update (innerproductargument.go:155-166 of
+    the Go reference) over pv [..., n]:
+
+        out[i] = pv[i] + gamma_i * pv[i + h]   for i < h, infinity for i >= h
+
+    The width n stays. digits [..., 2m, W] (m >= h) are GLV digits whose
+    lanes 2i, 2i+1 hold gamma_i; lanes from 2h on are not read (the JAX
+    package passes m = n). Only the h products that the fold needs run
+    (`scalar_mul_device` on pv[h:2h]), then one add; the lanes from h on
+    are set to (0:1:0), not computed. h is a host int."""
+    n = pv.x.shape[-2]
+    if not 0 <= h <= n // 2 or digits.shape[-2] < 2 * h:
+        raise ValueError(f"fold_device: h={h} for width {n} and digits "
+                         f"{tuple(digits.shape)}")
+    pad = infinity(tuple(pv.batch_shape[:-1]) + (n - h,), device=pv.x.device)
+    if h == 0:
+        return pad
+    lo = pmap(lambda t: t[..., :h, :].contiguous(), pv)
+    hi = pmap(lambda t: t[..., h:2 * h, :].contiguous(), pv)
+    folded = add(lo, scalar_mul_device(hi, digits[..., :2 * h, :]))
+    return PointVec(*(torch.cat([a, b], dim=-2) for a, b in zip(folded, pad)))
+
+
+def _gamma_digits(gammas: Sequence[int], h: int,
+                  device: torch.device) -> torch.Tensor:
+    """[k] gammas -> [k, 2h, W] GLV digits: each gamma recoded once on the
+    host, uploaded as [2, W] and repeated over the h lanes on the device."""
+    one = _digits(np.stack([scalars_to_digits([g]) for g in gammas]), device)
+    return one[:, None].expand(-1, h, -1, -1).reshape(
+        len(gammas), 2 * h, NUM_WINDOWS)
+
+
 # -- host-facing APIs ------------------------------------------------------------
 
 def _pad_pow2(n: int, minimum: int = 8) -> int:
@@ -364,12 +461,27 @@ class StackedVec:
         res: List[Affine] = [None] * len(jobs)
         if not owners:
             return res
-        device = self.pv.x.device
-        out = msm_rows_points_from_table(
-            self.table(), _digits(np.stack(digit_rows), device), rows_idx)
-        for j, pt in zip(owners, to_affine_host(out)):
-            res[j] = fh.g1_add(res[j], pt)
+        with profiling.span(f"msm_many[{len(jobs)}x{self.k}x{self.width}]"):
+            out = msm_rows_points_from_table(
+                self.table(), _digits(np.stack(digit_rows), self.pv.x.device),
+                rows_idx)
+            for j, pt in zip(owners, to_affine_host(out)):
+                res[j] = fh.g1_add(res[j], pt)
         return res
+
+    def fold(self, gammas) -> "StackedVec":
+        """Fold every base row on the device: row'[i] = row[i] + gamma_row *
+        row[i + h] for i < h = n_valid // 2 (an odd n_valid drops its last
+        lane), infinity beyond; `gammas` is one scalar or one per row. The
+        folded StackedVec builds its own table when one is asked for."""
+        if not isinstance(gammas, (list, tuple)):
+            gammas = [gammas] * self.k
+        if len(gammas) != self.k:
+            raise ValueError(f"fold: {len(gammas)} gammas for {self.k} rows")
+        with profiling.span(f"fold[{self.k}x{self.width}]"):
+            h = self.n_valid // 2
+            digits = _gamma_digits(gammas, h, self.pv.x.device)
+            return StackedVec(fold_device(self.pv, digits, h), h)
 
 
 class FoldedBases:
@@ -433,6 +545,47 @@ class FoldedBases:
         return self.sv.msm_many(
             [[(self.rows[r], self._expand(r, sc, off), 0)
               for (r, sc, off) in terms] for terms in jobs])
+
+
+class DeviceVec:
+    """A fixed-width vector of G1 points on a device ([width], padded with
+    infinity), folded in place of the bases of a folding argument: the
+    bases stay on the device across the rounds, only single points come
+    back to the host."""
+
+    def __init__(self, pv: PointVec, n_valid: int):
+        self.pv = pv
+        self.n_valid = n_valid
+        self.width = pv.x.shape[0]
+
+    @classmethod
+    def from_affine(cls, pts: Sequence[Affine], *, device: torch.device,
+                    pad_to: int = 0) -> "DeviceVec":
+        """Width: the next power of two from max(len(pts), pad_to), at
+        least 8."""
+        n = _pad_pow2(max(len(pts), pad_to))
+        return cls(from_affine_host(list(pts) + [None] * (n - len(pts)),
+                                    device=device), len(pts))
+
+    def msm(self, scalars: Sequence[int], offset: int = 0) -> Affine:
+        """<scalars, self[offset : offset + len(scalars)]>: the window sums
+        and their Horner combination on the device (`msm_device`), one
+        fetch of one point."""
+        if offset < 0 or offset + len(scalars) > self.width:
+            raise ValueError("DeviceVec.msm: scalars run past the vector")
+        sc = [0] * self.width
+        sc[offset:offset + len(scalars)] = scalars
+        digits = _digits(scalars_to_digits(sc), self.pv.x.device)
+        return to_affine_host_single(msm_device(self.pv, digits))
+
+    def fold(self, gamma: int) -> "DeviceVec":
+        """self'[i] = self[i] + gamma * self[i + h], h = n_valid // 2."""
+        h = self.n_valid // 2
+        digits = _gamma_digits([gamma], h, self.pv.x.device)[0]
+        return DeviceVec(fold_device(self.pv, digits, h), h)
+
+    def to_affine(self) -> List[Affine]:
+        return to_affine_host(self.pv)[: self.n_valid]
 
 
 def msm_batch(jobs: Sequence[Tuple[Sequence[Affine], Sequence[int]]], *,
@@ -528,8 +681,9 @@ def batch_scalar_mul(points: Sequence[Affine], scalars: Sequence[int], *,
     if not points:
         return []
     n = _pad_pow2(len(points))
-    pv = from_affine_host(list(points) + [None] * (n - len(points)),
-                          device=device)
-    sc = list(scalars) + [0] * (n - len(scalars))
-    out = scalar_mul_device(pv, _digits(scalars_to_digits(sc), device))
-    return to_affine_host_xy(out)[: len(points)]
+    with profiling.span(f"batch_scalar_mul[{n}]"):
+        pv = from_affine_host(list(points) + [None] * (n - len(points)),
+                              device=device)
+        sc = list(scalars) + [0] * (n - len(scalars))
+        out = scalar_mul_device(pv, _digits(scalars_to_digits(sc), device))
+        return to_affine_host_xy(out)[: len(points)]

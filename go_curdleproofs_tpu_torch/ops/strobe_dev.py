@@ -1,13 +1,22 @@
 """STROBE-128 / Merlin / the curdleproofs transcript on the device
-(counterpart of go_curdleproofs_tpu/ops/strobe_dev.py's static-position
-engine), so that the device-resident prover never waits for the host
-mid-proof. Byte-exact with utils/strobe.py + utils/merlin.py +
-utils/transcript.py.
+(counterpart of go_curdleproofs_tpu/ops/strobe_dev.py), so that the
+device-resident prover never waits for the host mid-proof. Byte-exact
+with utils/strobe.py + utils/merlin.py + utils/transcript.py.
 
-Every absorb in the protocol has a static length and every challenge ends
-at a position that depends on its label alone, so the STROBE position and
-pos_begin at every point of the prover are host integers: `TState` carries
-them beside the [200] uint8 state tensor. The layout arithmetic
+Two engines. The functional one (`SState` and the functions after it:
+`absorb`, `squeeze`, `meta_ad`, `ad`, `prf`, `append_message`,
+`challenge_bytes`, `get_and_append_challenge`) works from any position,
+one operation at a time, and never writes into its input: each call
+returns a new `SState`. Its positions are host ints, since every length
+is known on the host; every Keccak-f[1600] runs in the two transcript
+kernels (`strobe_absorb_stream` for absorbs, squeezes and the forced
+permutation of a PRF, `strobe_challenge32` for a challenge).
+
+The prover's engine, `TState`: every absorb in the protocol has a static
+length and every challenge ends at a position that depends on its label
+alone, so the STROBE position and pos_begin at every point of the prover
+are host integers: `TState` carries them beside the [200] uint8 state
+tensor. The layout arithmetic
 (`_bulk_layout`, `_sim_msgs_pos`, `post_challenge_pos`) is host Python; the
 bytes move through the two transcript kernels of ops/kernels.py:
 `strobe_absorb_stream` takes the prepared byte stream of any number of
@@ -19,11 +28,12 @@ rejection-samples against r and re-absorbs a challenge in one launch.
 from __future__ import annotations
 
 import functools
-from typing import List, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..utils import strobe as strobe_host
 from . import halflimb, kernels
 
 STROBE_R = kernels.STROBE_R
@@ -133,6 +143,131 @@ def bytes_tensor(data, device: torch.device) -> torch.Tensor:
         data, (bytes, bytearray)) else np.asarray(data, dtype=np.uint8)
     return halflimb.upload(arr.copy(), torch.uint8, device)
 
+
+@functools.lru_cache(maxsize=1024)
+def _const(data: bytes, device: torch.device) -> torch.Tensor:
+    """Bytes that recur (operation headers, the pos_begin of each rate
+    crossing) on `device`, uploaded once per value and device."""
+    return bytes_tensor(data, device)
+
+
+# -- the functional engine ------------------------------------------------------
+
+class SState(NamedTuple):
+    """A STROBE state on a device: st [200] uint8, pos and pos_begin host
+    ints."""
+    st: torch.Tensor
+    pos: int
+    pos_begin: int
+
+
+def from_host(h: strobe_host.Strobe128, *, device: torch.device) -> SState:
+    """A host Strobe128's state, uploaded."""
+    return SState(bytes_tensor(bytes(h.state), device), h.pos, h.pos_begin)
+
+
+def to_host(s: SState, template: Optional[strobe_host.Strobe128],
+            cur_flags: int) -> strobe_host.Strobe128:
+    """The device state as a host Strobe128 (one fetch); `template` is
+    not read (the JAX package's signature)."""
+    h = strobe_host.Strobe128.__new__(strobe_host.Strobe128)
+    h.state = bytearray(s.st.cpu().numpy().tobytes())
+    h.pos, h.pos_begin, h.cur_flags = s.pos, s.pos_begin, cur_flags
+    return h
+
+
+def _crossings(pos: int, pb: int, n: int) -> Tuple[bytes, int, int]:
+    """Absorbing n bytes from (pos, pos_begin): the pos_begin of each rate
+    crossing, then the (pos, pos_begin) after them."""
+    pbs = bytearray()
+    while pos + n >= STROBE_R:
+        n -= STROBE_R - pos
+        pbs.append(pb)
+        pos = pb = 0
+    return bytes(pbs), pos + n, pb
+
+
+def _xor_in(s: SState, data: torch.Tensor, force_f: bool = False) -> SState:
+    """`data` XORed into the rate from s.pos in one `strobe_absorb_stream`
+    launch, permuting at each rate crossing; with force_f, once more at
+    the end when the position is not 0 (a PRF's forced permutation)."""
+    pbs, pos, pb = _crossings(s.pos, s.pos_begin, data.shape[0])
+    st = kernels.strobe_absorb_stream(s.st, data, s.pos,
+                                      _const(pbs, s.st.device),
+                                      final_pb=pb if force_f else None)
+    return SState(st, 0, 0) if force_f else SState(st, pos, pb)
+
+
+def absorb(s: SState, data) -> SState:
+    """XOR `data` ([k] uint8 tensor on the state's device, or host bytes)
+    into the rate at pos."""
+    if not isinstance(data, torch.Tensor):
+        data = bytes_tensor(data, s.st.device)
+    return _xor_in(s, data) if data.shape[0] else s
+
+
+def squeeze(s: SState, k: int) -> Tuple[SState, torch.Tensor]:
+    """Read k bytes of the rate from pos ([k] uint8); what is read is
+    zeroed by XORing the same bytes back in (the absorb kernel, which
+    permutes at each rate crossing)."""
+    out = s.st[:0]
+    while k > 0:
+        take = min(STROBE_R - s.pos, k)
+        out = torch.cat([out, s.st[s.pos:s.pos + take]])
+        s = _xor_in(s, out[out.shape[0] - take:])
+        k -= take
+    return s, out
+
+
+def _begin_op(s: SState, flags: int, force_f: bool) -> SState:
+    header = _const(bytes([s.pos_begin, flags]), s.st.device)
+    return _xor_in(SState(s.st, s.pos, s.pos + 1), header, force_f)
+
+
+def meta_ad(s: SState, data, more: bool) -> SState:
+    if not more:
+        s = _begin_op(s, FLAG_M | FLAG_A, False)
+    return absorb(s, data)
+
+
+def ad(s: SState, data, more: bool) -> SState:
+    if not more:
+        s = _begin_op(s, FLAG_A, False)
+    return absorb(s, data)
+
+
+def prf(s: SState, k: int) -> Tuple[SState, torch.Tensor]:
+    return squeeze(_begin_op(s, FLAG_I | FLAG_A | FLAG_C, True), k)
+
+
+def append_message(s: SState, label: bytes, message) -> SState:
+    """Merlin's append_message; message: [L] uint8 tensor on the state's
+    device, or host bytes."""
+    s = meta_ad(s, bytes(label), False)
+    s = meta_ad(s, _u32le(len(message)), True)
+    return ad(s, message, False)
+
+
+def challenge_bytes(s: SState, label: bytes,
+                    n: int) -> Tuple[SState, torch.Tensor]:
+    s = meta_ad(s, bytes(label), False)
+    s = meta_ad(s, _u32le(n), True)
+    return prf(s, n)
+
+
+def get_and_append_challenge(s: SState,
+                             label: bytes) -> Tuple[SState, torch.Tensor]:
+    """The transcript's rejection-sampled challenge below r, absorbed back
+    (utils/transcript.py): one `strobe_challenge32` launch, which decides
+    on the device. Returns (state, challenge [32] uint8 big-endian). A
+    label longer than 32 bytes raises ValueError (every label of the
+    protocol is shorter)."""
+    st, chal = kernels.strobe_challenge32(s.st, bytes(label), s.pos,
+                                          s.pos_begin)
+    return SState(st, *post_challenge_pos(label)), chal
+
+
+# -- the prover's static-position engine ---------------------------------------
 
 @functools.lru_cache(maxsize=256)
 def _rows_layout(pos: int, pb: int, label: bytes, k: int, L: int,

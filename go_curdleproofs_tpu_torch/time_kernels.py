@@ -24,7 +24,10 @@ A launch that ends before the host's next call reads the wrapper (its
 ctypes call and torch.empty), not the card: mont_mul, point_add,
 point_double and strobe_challenge32 are such launches at every shape of
 the paths. So their lines also give the time a launch on the card, from
-torch.profiler over the same launches. strobe_challenge32 is timed at
+torch.profiler over the same launches (windowed_combine's and
+msm_select_reduce's too: the profiler is read in a fresh process here,
+while chip_smoke.py has used it up by its phase 8). strobe_challenge32 is
+timed at
 states whose challenge takes 1, 2 and 3 attempts; fr_mont_mul on the card
 at the batches of the device prove's histogram (raw first operands, as
 pairs and with one element broadcast on either side) and on 65,536
@@ -72,9 +75,11 @@ import random
 import subprocess
 import sys
 
-SHAPES_B6 = [(6, 256), (1, 256), (1, 2048)]         # (jobs, lanes)
+# (jobs, lanes); (12, 1024) and (4, 1024) are msm_stacked_device at k=3,
+# n=512 and m=4 and msm_rows_device there, rows 512 a fold at N=512
+SHAPES_B6 = [(6, 256), (1, 256), (1, 2048), (12, 1024), (4, 1024)]
 SHAPES_B6_SWEEP = [(1, 256), (3, 256), (6, 256), (1, 512), (1, 2048)]
-ROWS_B5 = [1, 6, 7, 2048]
+ROWS_B5 = [1, 6, 7, 512, 2048]
 SPLITS = (1, 2, 4, 8, 16)
 # points a launch of B2 and B3 on the paths: the device prover's 1-24, the
 # final MSM's 33, the table builds' [4, 1, 1024] and [1024]; 7 and 1025 are
@@ -188,7 +193,12 @@ def main() -> int:
     for m, n2 in SHAPES_B6:
         tab, dig = msm_inputs(m, n2)
         ms = kernel_ms(lambda: kernels.msm_select_reduce(tab, dig))
-        print(f"msm_select_reduce [9, {m}, {n2}]: {ms:.4f} ms", flush=True)
+        on_card = sum(
+            card_ms(lambda: kernels.msm_select_reduce(tab, dig), k)
+            for k in ("msm_select_reduce_kernel", "msm_finish_kernel")[
+                :1 + (kernels._msm_split(m, n2, W) > 1)])
+        print(f"msm_select_reduce [9, {m}, {n2}]: {ms:.4f} ms; on the card "
+              f"{on_card:.4f} ms a launch", flush=True)
     if args.splits:
         for m, n2 in SHAPES_B6_SWEEP:
             tab, dig = msm_inputs(m, n2)
@@ -206,7 +216,10 @@ def main() -> int:
     for rows in ROWS_B5:
         part = curve.pmap(lambda t: t[:, :rows].contiguous(), sel)
         ms = kernel_ms(lambda: kernels.windowed_combine(part), 10)
-        print(f"windowed_combine [{W}, {rows}]: {ms:.4f} ms", flush=True)
+        on_card = card_ms(lambda: kernels.windowed_combine(part),
+                          "windowed_combine_kernel", 10)
+        print(f"windowed_combine [{W}, {rows}]: {ms:.4f} ms; on the card "
+              f"{on_card:.4f} ms a launch", flush=True)
 
     # B1: the beta multiply of a table's x plane, then every batch of the
     # paths on the card

@@ -42,7 +42,9 @@ def test_file_list_covers_the_port():
                    "go_curdleproofs_tpu_torch/models/same_scalar.py",
                    "go_curdleproofs_tpu_torch/convert.py",
                    "go_curdleproofs_tpu_torch/parallel/msm.py",
-                   "go_curdleproofs_tpu_torch/parallel/batch.py"):
+                   "go_curdleproofs_tpu_torch/parallel/batch.py",
+                   "go_curdleproofs_tpu_torch/ops/strobe_dev.py",
+                   "go_curdleproofs_tpu_torch/utils/profiling.py"):
         assert needed in FILES
 
 
