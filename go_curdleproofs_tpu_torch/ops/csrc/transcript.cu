@@ -237,7 +237,10 @@ strobe_absorb_stream_kernel(const uint8_t* __restrict__ st_in,
 // byte in shared memory, every permutation moved the state out to the
 // warp's registers and back, the challenge was compared byte by byte on
 // lane 0) took 14.2 us a launch on the card at 2 attempts, of which 5-7.5
-// us were permutations. What this design does about the rest:
+// us were permutations. The kernel is a template on the label's length:
+// strobe_challenge32_kernel<false> serves labels of at most 32 bytes (every
+// label of the protocol), <true> labels of any length. What the short
+// design does about the rest:
 //   * the state stays in registers from load to store, lane i < 25 holding
 //     state lane i as (lo, hi), as in strobe_absorb_stream;
 //   * an attempt's header [pb_old, M|A, label, 32, 0, 0, 0, pb, I|A|C] is
@@ -263,6 +266,14 @@ strobe_absorb_stream_kernel(const uint8_t* __restrict__ st_in,
 // 11.3 -> 6.9, 3 attempts 14.7-15.6 -> 9.1-9.5: a permutation a attempt
 // (~2.5 us) and ~1.9 us of launch, loads and stores. 88 registers, no
 // stack (ptxas); 1,232 SASS instructions against 2,744.
+// A label over 32 bytes breaks each bound above: the header of L + 8
+// bytes crosses the rate floor((p + L + 8) / 166) times from position p, a
+// retry's header from 32 crosses once L >= 126, and the re-absorbed
+// message crosses once L >= 94. The long instantiation (challenge_long)
+// keeps the state in registers and the decision on the card, and walks
+// every byte string segment by segment between crossings, its header in
+// chunks of 128 bytes read from the label in device memory; it is off every
+// protocol path.
 
 struct Label {
   uint32_t w[8];     // little-endian, zero past the label's length
@@ -328,27 +339,51 @@ __device__ __forceinline__ void xor_segment(uint32_t& lo, uint32_t& hi,
   hi ^= vhi & (uint32_t)(m >> 32);
 }
 
-__global__ void __launch_bounds__(32)
-strobe_challenge32_kernel(const uint8_t* __restrict__ st_in,
-                          uint8_t* __restrict__ st_out,
-                          uint8_t* __restrict__ chal_out, Label label,
-                          int label_len, int pos, int pos_begin) {
-  const Lane l = lane_consts();
-  uint32_t lo = 0, hi = 0;
-  if (l.lane < kLanes) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      lo |= (uint32_t)st_in[8 * l.lane + j] << (8 * j);
-      hi |= (uint32_t)st_in[8 * l.lane + 4 + j] << (8 * j);
-    }
+// The squeeze after an attempt's last permutation: lanes 0-3 take the
+// challenge's 32 bytes from their words (zeroing them in the state) and
+// compare them big-endian with r's, 8 bytes a lane; one ballot of "less"
+// and one of "greater", and the lowest lane that differs decides, alike on
+// every lane. True when the challenge is below r.
+__device__ __forceinline__ bool squeeze_below_r(uint32_t& lo, uint32_t& hi,
+                                                const Lane& l, uint32_t& clo,
+                                                uint32_t& chi) {
+  if (l.lane < 4) {
+    clo = lo;
+    chi = hi;
+    lo = hi = 0;
   }
-  const int len = label_len, nh = len + 8;   // header bytes
+  const uint64_t v =
+      (uint64_t)__byte_perm(clo, 0, 0x0123) << 32 | __byte_perm(chi, 0, 0x0123);
+  const uint64_t r = kRWordsBE[l.lane & 3];
+  const unsigned lt = __ballot_sync(kWarp, l.lane < 4 && v < r);
+  const unsigned gt = __ballot_sync(kWarp, l.lane < 4 && v > r);
+  const unsigned diff = lt | gt;
+  return (lt & diff & (0u - diff)) != 0;
+}
+
+// The squeezed challenge as a string of lane words: lanes 0-7 hold its
+// bytes 4w .. 4w + 3, the others 0.
+__device__ __forceinline__ uint32_t challenge_word(uint32_t clo, uint32_t chi,
+                                                  const Lane& l) {
+  const uint32_t cx = shfl(clo, (l.lane >> 1) & 3);
+  const uint32_t cy = shfl(chi, (l.lane >> 1) & 3);
+  return l.lane < 8 ? (l.lane & 1 ? cy : cx) : 0u;
+}
+
+// The challenge for a label of at most 32 bytes (the protocol's labels):
+// the header is at most 40 bytes, one string of lane words.
+__device__ __forceinline__ void challenge_short(uint32_t& lo, uint32_t& hi,
+                                                const Lane& l,
+                                                const Label& label, int len,
+                                                int pos, int pos_begin,
+                                                uint32_t& clo,
+                                                uint32_t& chi) {
+  const int nh = len + 8;                    // header bytes
   const uint32_t lab = label_word(label, l.lane) << 16 |
                        (l.lane > 0 ? label_word(label, l.lane - 1) >> 16 : 0u);
   // the attempt's header starts at p0 after an operation begun at pb_old;
   // h: header bytes already absorbed (the first attempt's crossing)
   int p0 = pos, pb_old = pos_begin, h = 0;
-  uint32_t clo = 0, chi = 0;       // lanes 0-3: the squeezed challenge
 #pragma unroll 1
   while (true) {
     const int hc = kRate - p0;              // header bytes before the rate end
@@ -376,18 +411,7 @@ strobe_challenge32_kernel(const uint8_t* __restrict__ st_in,
     keccak_f1600_warp(lo, hi, l);            // the one permutation
     h += s1 - s0;
     if (h < nh) continue;                    // the crossing: the rest next
-    if (l.lane < 4) {                        // squeeze: bytes 0-31
-      clo = lo;
-      chi = hi;
-      lo = hi = 0;
-    }
-    const uint64_t v =
-        (uint64_t)__byte_perm(clo, 0, 0x0123) << 32 | __byte_perm(chi, 0, 0x0123);
-    const uint64_t r = kRWordsBE[l.lane & 3];
-    const unsigned lt = __ballot_sync(kWarp, l.lane < 4 && v < r);
-    const unsigned gt = __ballot_sync(kWarp, l.lane < 4 && v > r);
-    const unsigned diff = lt | gt;
-    if (lt & diff & (0u - diff)) break;      // the lowest differing lane
+    if (squeeze_below_r(lo, hi, l, clo, chi)) break;
     p0 = 32;                                 // retry from pos 32, pb 0
     pb_old = 0;
     h = 0;
@@ -397,10 +421,115 @@ strobe_challenge32_kernel(const uint8_t* __restrict__ st_in,
   // after it
   xor_segment(lo, hi, l, header_word(lab, l.lane, len, 0, 33, kFlagA), 32,
               32 + nh, 0);
-  const uint32_t cx = shfl(clo, (l.lane >> 1) & 3);
-  const uint32_t cy = shfl(chi, (l.lane >> 1) & 3);
-  const uint32_t cw = l.lane < 8 ? (l.lane & 1 ? cy : cx) : 0u;
-  xor_segment(lo, hi, l, cw, 32 + nh, 64 + nh, 0);
+  xor_segment(lo, hi, l, challenge_word(clo, chi, l), 32 + nh, 64 + nh, 0);
+}
+
+// Byte i of a header [pb0, M|A, label (len bytes), 32, 0, 0, 0, pbq, flag]
+// whose label lies in device memory; 0 past its end.
+__device__ __forceinline__ uint32_t long_header_byte(
+    const uint8_t* __restrict__ label, int len, int i, int pb0, int pbq,
+    int flag) {
+  if (i == 0) return (uint32_t)pb0;
+  if (i == 1) return kFlagM | kFlagA;
+  if (i < 2 + len) return __ldg(label + i - 2);
+  if (i == 2 + len) return 32u;
+  if (i == 6 + len) return (uint32_t)pbq;
+  if (i == 7 + len) return (uint32_t)flag;
+  return 0u;
+}
+
+// The challenge for a label of any length. Each of its byte strings (an
+// attempt's header, and at the end the header of the accepted challenge's
+// message followed by the challenge) is absorbed segment by segment: the
+// first from the string's start position p0 to the rate's end or the
+// string's, every later one from 0. After every segment that reaches the
+// rate's end the permutation runs at that crossing's pos_begin; after an
+// attempt's last segment it runs in any case (the PRF's forced one, unless
+// the segment reached the rate's end). A segment's header bytes come in
+// chunks of 128 (lane w holds the chunk's bytes 4w .. 4w + 3, read from the
+// label in device memory) through xor_segment, which takes from a chunk
+// only the bytes that lie in it; the challenge is one more string of lane
+// words (lanes 0-7), after the header. Positions and pos_begin values are
+// computed alike on every lane, so every branch is uniform over the warp.
+__device__ __forceinline__ void challenge_long(
+    uint32_t& lo, uint32_t& hi, const Lane& l,
+    const uint8_t* __restrict__ label, int len, int pos, int pos_begin,
+    uint32_t& clo, uint32_t& chi) {
+  const int nh = len + 8;        // header bytes
+  const int q = 6 + len;         // the header's byte that begins the second
+                                 // operation (I|A|C, or A at the end)
+  // the string starts at p0 after an operation begun at pb0; h: its bytes
+  // already absorbed; accepted: the string is the accepted challenge's
+  // message
+  int p0 = pos, pb0 = pos_begin, h = 0;
+  bool accepted = false;
+  uint32_t cw = 0;               // lanes 0-7: the accepted challenge's words
+#pragma unroll 1
+  while (true) {
+    const int n = accepted ? nh + 32 : nh;
+    const int first = kRate - p0;            // string bytes before a crossing
+    const bool q_first = q < first;
+    const int pbq = q_first ? p0 + 1 : 0;    // pos_begin when q is absorbed
+    const int pb_op = (q_first ? p0 + q : (q - first) % kRate) + 1;
+    const int flag = accepted ? kFlagA : kFlagI | kFlagA | kFlagC;
+    const int s0 = h == 0 ? p0 : 0;
+    const int take = min(kRate - s0, n - h);
+    const int s1 = s0 + take;
+    const int hend = min(h + take, nh);
+#pragma unroll 1
+    for (int c = h >> 7; 128 * c < hend; ++c) {
+      uint32_t word = 0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        word |= long_header_byte(label, len, 128 * c + 4 * l.lane + j, pb0,
+                                 pbq, flag) << (8 * j);
+      xor_segment(lo, hi, l, word, s0, s1, h - 128 * c);
+    }
+    if (h + take > nh) xor_segment(lo, hi, l, cw, s0, s1, h - nh);
+    const int fpb = h + take - 1 < q ? (h == 0 ? p0 + 1 : 0)
+                                     : (h <= q ? pb_op : 0);
+    h += take;
+    if (s1 == kRate || !accepted) {
+      xor_byte(lo, hi, l, s1, (uint32_t)fpb);
+      xor_byte(lo, hi, l, s1 + 1, 0x04);
+      xor_byte(lo, hi, l, kRate + 1, 0x80);
+      keccak_f1600_warp(lo, hi, l);          // the one permutation
+    }
+    if (h < n) continue;                     // a crossing: the rest next
+    if (accepted) break;
+    if (squeeze_below_r(lo, hi, l, clo, chi)) {
+      accepted = true;
+      cw = challenge_word(clo, chi, l);
+    }
+    p0 = 32;                                 // next string from pos 32, pb 0
+    pb0 = 0;
+    h = 0;
+  }
+}
+
+// kLong: labels of any length, read from `label_dev`; otherwise at most 32
+// bytes, passed by value in `label`.
+template <bool kLong>
+__global__ void __launch_bounds__(32)
+strobe_challenge32_kernel(const uint8_t* __restrict__ st_in,
+                          uint8_t* __restrict__ st_out,
+                          uint8_t* __restrict__ chal_out, Label label,
+                          const uint8_t* __restrict__ label_dev,
+                          int label_len, int pos, int pos_begin) {
+  const Lane l = lane_consts();
+  uint32_t lo = 0, hi = 0;
+  if (l.lane < kLanes) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      lo |= (uint32_t)st_in[8 * l.lane + j] << (8 * j);
+      hi |= (uint32_t)st_in[8 * l.lane + 4 + j] << (8 * j);
+    }
+  }
+  uint32_t clo = 0, chi = 0;       // lanes 0-3: the squeezed challenge
+  if constexpr (kLong)
+    challenge_long(lo, hi, l, label_dev, label_len, pos, pos_begin, clo, chi);
+  else
+    challenge_short(lo, hi, l, label, label_len, pos, pos_begin, clo, chi);
   if (l.lane < kLanes) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -421,7 +550,9 @@ strobe_challenge32_kernel(const uint8_t* __restrict__ st_in,
 
 // ---------------------------------------------------------------------------
 // C launchers (ctypes). Pointers are device pointers except `label`, which
-// points to label_len (<= 32) host bytes; `stream` is a cudaStream_t.
+// points to label_len host bytes; `stream` is a cudaStream_t. A label of at
+// most 32 bytes goes to the kernel by value; a longer one is read from
+// `label_dev`, its label_len bytes in device memory.
 
 extern "C" {
 
@@ -436,9 +567,17 @@ int curdle_strobe_absorb_stream(const void* st_in, void* st_out,
 }
 
 int curdle_strobe_challenge32(const void* st_in, void* st_out, void* chal_out,
-                              const uint8_t* label, int label_len, int pos,
-                              int pos_begin, void* stream) {
-  if (label_len < 0 || label_len > 32) return (int)cudaErrorInvalidValue;
+                              const uint8_t* label, const void* label_dev,
+                              int label_len, int pos, int pos_begin,
+                              void* stream) {
+  if (label_len < 0) return (int)cudaErrorInvalidValue;
+  if (label_len > 32) {
+    if (label_dev == nullptr) return (int)cudaErrorInvalidValue;
+    strobe_challenge32_kernel<true><<<1, 32, 0, (cudaStream_t)stream>>>(
+        (const uint8_t*)st_in, (uint8_t*)st_out, (uint8_t*)chal_out, Label{},
+        (const uint8_t*)label_dev, label_len, pos, pos_begin);
+    return (int)cudaGetLastError();
+  }
   Label l;
   for (int j = 0; j < 8; ++j) {
     l.w[j] = 0;
@@ -446,8 +585,8 @@ int curdle_strobe_challenge32(const void* st_in, void* st_out, void* chal_out,
       if (4 * j + k < label_len)
         l.w[j] |= (uint32_t)label[4 * j + k] << (8 * k);
   }
-  strobe_challenge32_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)st_in, (uint8_t*)st_out, (uint8_t*)chal_out, l,
+  strobe_challenge32_kernel<false><<<1, 32, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)st_in, (uint8_t*)st_out, (uint8_t*)chal_out, l, nullptr,
       label_len, pos, pos_begin);
   return (int)cudaGetLastError();
 }

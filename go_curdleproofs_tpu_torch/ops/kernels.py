@@ -29,6 +29,7 @@ first use, again whenever the sources' hash changes, and load with ctypes.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -41,7 +42,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..utils.field_host import R as FR_MODULUS
-from . import curve, fp, fr, keccak_dev
+from . import curve, fp, fr, halflimb, keccak_dev
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _CU_SOURCES = ("kernels.cu", "pointwise.cu", "transcript.cu")  # a library each
@@ -171,7 +172,7 @@ def _load() -> SimpleNamespace:
             fns.strobe_absorb_stream.argtypes = [
                 vp, vp, vp, i32, i32, vp, i32, i32, vp]
             fns.strobe_challenge32.argtypes = [
-                vp, vp, vp, ctypes.c_char_p, i32, i32, i32, vp]
+                vp, vp, vp, ctypes.c_char_p, vp, i32, i32, i32, vp]
             for fn in vars(fns).values():
                 fn.restype = i32
             _lib = fns
@@ -748,28 +749,36 @@ def strobe_challenge32_plain(state: torch.Tensor, label: bytes, pos: int,
     return st, chal
 
 
+@functools.lru_cache(maxsize=256)
+def _label_on(label: bytes, device: torch.device) -> torch.Tensor:
+    """A challenge label over 32 bytes on `device`, where the kernel reads
+    it: uploaded once per label and device."""
+    return halflimb.upload(list(label), torch.uint8, device)
+
+
 def strobe_challenge32(state: torch.Tensor, label: bytes, pos: int,
                        pos_begin: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """The transcript's get_and_append_challenge on a [200] uint8 STROBE
     state at (pos, pos_begin): 32-byte challenges are squeezed under
-    `label` until one is below r, and the accepted one is absorbed back as
-    a message under the same label. Returns (state, challenge [32] uint8
-    big-endian), fresh tensors; the decision to accept is taken on the
-    device."""
+    `label` (of any length) until one is below r, and the accepted one is
+    absorbed back as a message under the same label. Returns (state,
+    challenge [32] uint8 big-endian), fresh tensors; the decision to
+    accept is taken on the device, in one launch."""
     _check_strobe("strobe_challenge32", state, pos)
     if not 0 <= pos_begin <= STROBE_R:
         raise ValueError(f"strobe_challenge32: bad pos_begin {pos_begin}")
-    if len(label) > 32:
-        raise ValueError("strobe_challenge32: label longer than 32 bytes")
     if _route(state, dtype=torch.uint8) == "cpu":
         return strobe_challenge32_plain(state, label, pos, pos_begin)
+    label = bytes(label)
+    label_dev = _label_on(label, state.device) if len(label) > 32 else None
     out = torch.empty_like(state)
     chal = torch.empty(32, dtype=torch.uint8, device=state.device)
     lib = _load()
     with torch.cuda.device(state.device):
         rc = lib.strobe_challenge32(
-            state.data_ptr(), out.data_ptr(), chal.data_ptr(), bytes(label),
-            len(label), pos, pos_begin, _stream(state.device))
+            state.data_ptr(), out.data_ptr(), chal.data_ptr(), label,
+            None if label_dev is None else label_dev.data_ptr(), len(label),
+            pos, pos_begin, _stream(state.device))
     _check(rc, "strobe_challenge32")
     launches["strobe_challenge32"] += 1
     return out, chal

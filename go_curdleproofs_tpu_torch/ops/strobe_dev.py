@@ -258,10 +258,9 @@ def challenge_bytes(s: SState, label: bytes,
 def get_and_append_challenge(s: SState,
                              label: bytes) -> Tuple[SState, torch.Tensor]:
     """The transcript's rejection-sampled challenge below r, absorbed back
-    (utils/transcript.py): one `strobe_challenge32` launch, which decides
-    on the device. Returns (state, challenge [32] uint8 big-endian). A
-    label longer than 32 bytes raises ValueError (every label of the
-    protocol is shorter)."""
+    (utils/transcript.py), under a label of any length: one
+    `strobe_challenge32` launch, which decides on the device. Returns
+    (state, challenge [32] uint8 big-endian)."""
     st, chal = kernels.strobe_challenge32(s.st, bytes(label), s.pos,
                                           s.pos_begin)
     return SState(st, *post_challenge_pos(label)), chal
@@ -331,8 +330,9 @@ class TState:
         return out
 
     def get_and_append_challenge(self, label: bytes) -> torch.Tensor:
-        """A challenge below r ([32] uint8 big-endian), absorbed back into
-        the transcript; rejected attempts are resampled on the device."""
+        """A challenge below r ([32] uint8 big-endian) under a label of
+        any length, absorbed back into the transcript; rejected attempts
+        are resampled on the device, in one launch."""
         self.st, chal = kernels.strobe_challenge32(
             self.st, bytes(label), self.pos, self.pos_begin)
         self.pos, self.pos_begin = post_challenge_pos(label)

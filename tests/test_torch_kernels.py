@@ -498,8 +498,8 @@ def test_new_wrappers_check_inputs_and_never_fall_back():
     with pytest.raises(ValueError):
         kernels.strobe_absorb_stream(state, torch.zeros(80, dtype=torch.uint8)
                                      [0::2], 0, none)
-    with pytest.raises(ValueError):
-        kernels.strobe_challenge32(state, b"l" * 33, 0, 0)
+    with pytest.raises(ValueError):                         # position 166
+        kernels.strobe_challenge32(state, b"l" * 33, 166, 0)
     with pytest.raises(ValueError):
         kernels.strobe_challenge32(state, b"label", 0, 167)
     with pytest.raises(TypeError):

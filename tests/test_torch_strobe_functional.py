@@ -161,15 +161,6 @@ def test_challenge_rejection_matches_jax_and_host():
         assert (s.pos, s.pos_begin) == (int(j.pos), int(j.pos_begin))
 
 
-def test_challenge_label_over_32_bytes_raises():
-    s = sd.from_host(Transcript(b"long").inner.strobe, device=CPU)
-    before = s.st.clone()
-    sd.get_and_append_challenge(s, b"x" * 32)
-    with pytest.raises(ValueError, match="longer than 32 bytes"):
-        sd.get_and_append_challenge(s, b"x" * 33)
-    assert torch.equal(s.st, before)
-
-
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -178,11 +169,17 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_cuda_functional_strobe_matches_host(cuda_device):
+def test_cuda_functional_strobe_matches_host(cuda_device, monkeypatch):
     """On the card (strobe_absorb_stream, strobe_challenge32): 40 operations
-    across the rate and 6 chained challenges, as the host, state unchanged
-    by every call."""
+    across the rate, 6 chained challenges and 3 under labels of 33, 127 and
+    300 bytes, as the host, state unchanged by every call; each challenge
+    one launch of the kernel, none through its plain version."""
     from go_curdleproofs_tpu_torch.ops import kernels
+
+    def no_plain(*args):
+        raise AssertionError("a CUDA state reached the plain version")
+
+    monkeypatch.setattr(kernels, "strobe_challenge32_plain", no_plain)
 
     rng = random.Random(41)
     th = Transcript(b"card")
@@ -204,10 +201,13 @@ def test_cuda_functional_strobe_matches_host(cuda_device):
             s, out = _pure(sd.prf, s, n)
             assert _bytes(out.cpu()) == want
         assert _same(s, h)
-    for _ in range(6):
-        want = th.get_and_append_challenge(b"c")
-        s, got = _pure(sd.get_and_append_challenge, s, b"c")
+    for label in [b"c"] * 6 + [bytes(range(33)), b"l" * 127, b"m" * 300]:
+        before = dict(kernels.launches)
+        want = th.get_and_append_challenge(label)
+        s, got = _pure(sd.get_and_append_challenge, s, label)
         assert int.from_bytes(_bytes(got.cpu()), "big") == want
         assert _same(s, h)
+        assert {k: n - before[k] for k, n in kernels.launches.items()
+                if n != before[k]} == {"strobe_challenge32": 1}, label
     assert kernels.launches["strobe_absorb_stream"] > 40
-    assert kernels.launches["strobe_challenge32"] == 6
+    assert kernels.launches["strobe_challenge32"] == 9
