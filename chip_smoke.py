@@ -57,8 +57,8 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
      pairs and broadcast on either side, with its time a launch on the
      card. point_add and point_double are launched exactly 6 and 2 times a
      verify, 14 and 6 a prove, 64 and 15 a device prove, mont_mul 9, 18
-     and 146; the counted device prove runs with CURDLE_PROFILE=1 and
-     prints its span table (the spans inside the chain run under the
+     and 146; the counted device prove runs with the spans on
+     (profiling.enable()) and prints its span table (the spans inside the chain run under the
      sync-debug mode too);
   8. (run before phase 7) physical folding, the device MSM entry points,
      the functional STROBE, ELL=252 and ELL=508: one Whisk shuffle at each
@@ -262,8 +262,8 @@ _BATCH_FEW = dict(mont_mul=9, point_add=5, point_double=2, pow_fixed=1,
                   strobe_challenge32=0)
 BATCH_LAUNCHES = {2: _BATCH_FEW, 8: _BATCH_FEW,
                   32: dict(_BATCH_FEW, point_add=7)}
-# spans of a device prove with CURDLE_PROFILE=1 (the middle six inside the
-# chain, which runs under sync-debug "error")
+# spans of a device prove with the spans on (profiling.enable(); the middle
+# six inside the chain, which runs under sync-debug "error")
 DEVICE_PROVE_SPANS = ("dpf.host.step1", "dpf.host.draws", "dpf.upload",
                       "dpf.sameperm_gpa", "dpf.blinders", "dpf.ipa",
                       "dpf.step3_sigma", "dpf.samemsm", "dpf.finalize",
@@ -1525,20 +1525,20 @@ def phase_device_prover(dev: torch.device, card: str, crs, insts, gv,
         seen.update(chains=0, fetches=0)
         kernels.reset_launches()
         profiling.reset()
-        os.environ["CURDLE_PROFILE"] = "1"
+        profiling.enable()
         t0 = time.perf_counter()
         try:
             with MulShapes("fr_mont_mul") as fr_sizes:
                 post, proof = prove()
             torch.cuda.synchronize()
         finally:
-            del os.environ["CURDLE_PROFILE"]
+            profiling.disable()
         cold_ms = (time.perf_counter() - t0) * 1e3
         counts = dict(kernels.launches)
         spans = profiling.totals()
         check(set(DEVICE_PROVE_SPANS) <= set(spans),
               f"the device prove's spans, saw {sorted(spans)}")
-        print("spans of the device prove (CURDLE_PROFILE=1, host clock):")
+        print("spans of the device prove (profiling.enable(), host clock):")
         print(profiling.report())
         profiling.reset()
         check(seen == dict(chains=1, fetches=1),

@@ -24,6 +24,7 @@ import torch
 from ..ops import curve
 from ..utils import codec
 from ..utils import field_host as fh
+from ..utils import profiling
 from ..utils.field_host import Affine
 from ..utils.rand import Rand
 from ..utils.transcript import Transcript
@@ -106,6 +107,7 @@ class Proof:
                    same_multiscalar.Proof.from_reader(r))
 
 
+@profiling.traced("curdleproof.prove")
 def prove(crs: CRS, Rs: List[Affine], Ss: List[Affine], Ts: List[Affine],
           Us: List[Affine], M: Affine, perm: Sequence[int], k: int,
           rs_m: List[int], rand: Rand, *, device: torch.device,
@@ -145,8 +147,9 @@ def prove(crs: CRS, Rs: List[Affine], Ss: List[Affine], Ts: List[Affine],
     r_u = rand.get_fr()
     R, S = curve.StackedVec.from_affine([Rs, Ss], device=device).msm_many(
         [[(0, as_, 0)], [(1, as_, 0)]])
-    cm_t = GroupCommitment.new(crs.gt, crs.h, fh.g1_mul(R, k), r_t)
-    cm_u = GroupCommitment.new(crs.gu, crs.h, fh.g1_mul(S, k), r_u)
+    with profiling.span("group"):
+        cm_t = GroupCommitment.new(crs.gt, crs.h, fh.g1_mul(R, k), r_t)
+        cm_u = GroupCommitment.new(crs.gu, crs.h, fh.g1_mul(S, k), r_u)
 
     proof_same_scalar = same_scalar.prove(
         same_scalar.CRS(crs.gt, crs.gu, crs.h),
@@ -167,6 +170,7 @@ def prove(crs: CRS, Rs: List[Affine], Ss: List[Affine], Ts: List[Affine],
                  proof_same_msm)
 
 
+@profiling.traced("curdleproof.verify")
 def verify(proof: Proof, crs: CRS, Rs: List[Affine], Ss: List[Affine],
            Ts: List[Affine], Us: List[Affine], M: Affine, rand: Rand, *,
            device: torch.device,
@@ -267,6 +271,7 @@ def _gh_static(crs: CRS, device: torch.device) -> StaticBases:
     return ent
 
 
+@profiling.traced("shuffle")
 def shuffle_permute_commit(crs_gs: List[Affine], crs_hs: List[Affine],
                            Rs: List[Affine], Ss: List[Affine],
                            perm: Sequence[int], k: int, rand: Rand, *,

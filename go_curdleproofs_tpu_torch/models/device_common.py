@@ -19,6 +19,7 @@ from ..ops import compress_dev, fp, fr, glv_dev, strobe_dev
 from ..ops.curve import PointVec
 from ..utils import codec
 from ..utils import field_host as fh
+from ..utils import profiling
 from ..utils.field_host import Affine
 from ..utils.transcript import Transcript
 
@@ -151,7 +152,9 @@ def fetch(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:
     packed into one buffer on the device, one copy to the host, split back
     into arrays of the tensors' shapes."""
     flat = torch.cat([t.to(torch.uint8).reshape(-1) for t in tensors])
-    host = flat.cpu().numpy()
+    with profiling.span("fetch"):
+        host = flat.cpu()
+    host = host.numpy()
     out, off = [], 0
     for t in tensors:
         n = t.numel()

@@ -17,6 +17,7 @@ import torch
 from ..ops import curve
 from ..utils import codec
 from ..utils import field_host as fh
+from ..utils import profiling
 from ..utils.field_host import Affine
 from ..utils.rand import Rand
 from ..utils.transcript import Transcript
@@ -57,6 +58,7 @@ class Proof:
         return cls(c, r_p, inner_product.Proof.from_reader(r))
 
 
+@profiling.traced("grand_product.prove")
 def prove(crs: CRS, B: Affine, result: int, bs: List[int], r_bs: List[int],
           transcript: Transcript, rand: Rand, *,
           device: torch.device, prover: str = DEFAULT_PROVER) -> Proof:
@@ -163,6 +165,7 @@ def prove(crs: CRS, B: Affine, result: int, bs: List[int], r_bs: List[int],
     return Proof(C, r_p, ipa_proof)
 
 
+@profiling.traced("grand_product.verify")
 def verify(proof: Proof, crs: CRS, gsum: Affine, hsum: Affine, B: Affine,
            result: int, num_blinders: int, transcript: Transcript,
            msm_accumulator: MsmAccumulator, rand: Rand) -> bool:
@@ -189,8 +192,10 @@ def verify(proof: Proof, crs: CRS, gsum: Affine, hsum: Affine, B: Affine,
 
     # D = B - beta^-1*Gsum + alpha*Hsum enters the IPA transcript, so it is
     # one of the few points a verification materialises
-    D = fh.g1_sub(codec.resolve_point(B), fh.g1_mul(gsum, beta_inv))
-    D = fh.g1_add(D, fh.g1_mul(hsum, alpha))
+    B = codec.resolve_point(B)
+    with profiling.span("group"):
+        D = fh.g1_sub(B, fh.g1_mul(gsum, beta_inv))
+        D = fh.g1_add(D, fh.g1_mul(hsum, alpha))
 
     gs_full = list(crs.gs) + list(crs.hs)
     beta_exp_l = pow(beta, ell, fh.R)

@@ -19,6 +19,7 @@ import torch
 from ..ops import curve
 from ..utils import codec
 from ..utils import field_host as fh
+from ..utils import profiling
 from ..utils.field_host import Affine
 from ..utils.rand import Rand
 from ..utils.transcript import Transcript
@@ -106,6 +107,7 @@ def generate_ipa_blinders(rand: Rand, cs: Sequence[int],
     return rs, zs
 
 
+@profiling.traced("inner_product.prove")
 def prove(crs: CRS, C: Affine, D: Affine, z: int, cs: List[int],
           ds: List[int], transcript: Transcript, rand: Rand, *,
           device: torch.device, prover: str = DEFAULT_PROVER) -> Proof:
@@ -179,6 +181,7 @@ def prove(crs: CRS, C: Affine, D: Affine, z: int, cs: List[int],
     return Proof(b_c, b_d, l_cs, r_cs, l_ds, r_ds, cs[0], ds[0])
 
 
+@profiling.traced("inner_product.verify")
 def verify(proof: Proof, crs: CRS, C, D, z: int, us: List[int],
            transcript: Transcript, msm_accumulator: MsmAccumulator,
            rand: Rand) -> bool:

@@ -22,6 +22,7 @@ import torch
 
 from ..ops import curve
 from ..utils import field_host as fh
+from ..utils import profiling
 from ..utils.codec import LazyPoint, point_is_infinity, resolve_point
 from ..utils.field_host import Affine
 from ..utils.rand import Rand
@@ -63,6 +64,7 @@ class MsmAccumulator:
             return
         self._base_scalar[base] = self._base_scalar.get(base, 0) + scalar
 
+    @profiling.traced("accumulate")
     def accumulate_check(self, c: Commitment, x: Sequence[int],
                          v: Sequence[Affine], rand: Rand) -> None:
         """Defer the check c == <x, v>."""
@@ -92,6 +94,7 @@ class MsmAccumulator:
                 dyn_s.append(s)
         return (static_sc if any_static else None), dyn_b, dyn_s
 
+    @profiling.traced("final_msm")
     def verify(self) -> bool:
         """One deduplicated MSM == identity. LazyPoint bases resolve here:
         one batched decompression for every deferred point."""

@@ -18,6 +18,7 @@ import torch
 from ..ops import curve
 from ..utils import codec
 from ..utils import field_host as fh
+from ..utils import profiling
 from ..utils.field_host import Affine
 from ..utils.rand import Rand
 from ..utils.transcript import Transcript
@@ -67,6 +68,7 @@ class Proof:
                    d.read_fr())
 
 
+@profiling.traced("same_multiscalar.prove")
 def prove(G: List[Affine], A: Affine, Z_t: Affine, Z_u: Affine,
           T: List[Affine], U: List[Affine], x: List[int],
           transcript: Transcript, rand: Rand, *,
@@ -150,6 +152,7 @@ def unfolded_scalars(proof: Proof, n: int, transcript: Transcript):
     return challenges, fh.fr_batch_inv(challenges), ss
 
 
+@profiling.traced("same_multiscalar.verify")
 def verify(proof: Proof, G: List[Affine], A: Affine, Z_t: Affine,
            Z_u: Affine, T: List[Affine], U: List[Affine],
            transcript: Transcript, msm_accumulator: MsmAccumulator,

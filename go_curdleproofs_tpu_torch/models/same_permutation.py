@@ -12,6 +12,7 @@ import torch
 
 from ..utils import codec
 from ..utils import field_host as fh
+from ..utils import profiling
 from ..utils.field_host import Affine
 from ..utils.rand import Rand
 from ..utils.transcript import Transcript
@@ -51,6 +52,7 @@ def permute(vs: Sequence, perm: Sequence[int]) -> list:
     return [vs[p] for p in perm]
 
 
+@profiling.traced("same_permutation.prove")
 def prove(crs: CRS, A: Affine, M: Affine, as_: List[int],
           permutation: Sequence[int], rs_a: List[int], rs_m: List[int],
           transcript: Transcript, rand: Rand, *,
@@ -74,10 +76,12 @@ def prove(crs: CRS, A: Affine, M: Affine, as_: List[int],
 
     # <beta..beta, Gs> == beta * (sum Gs): two host scalar multiplications
     # instead of a device MSM (the group element is identical)
-    gsum = None
-    for g in crs.gs:
-        gsum = fh.g1_add(gsum, g)
-    B = fh.g1_add(A, fh.g1_add(fh.g1_mul(M, alpha), fh.g1_mul(gsum, beta)))
+    with profiling.span("group"):
+        gsum = None
+        for g in crs.gs:
+            gsum = fh.g1_add(gsum, g)
+        B = fh.g1_add(A, fh.g1_add(fh.g1_mul(M, alpha),
+                                   fh.g1_mul(gsum, beta)))
 
     rs_b = [(alpha * rm + ra) % fh.R for ra, rm in zip(rs_a, rs_m)]
 
@@ -87,6 +91,7 @@ def prove(crs: CRS, A: Affine, M: Affine, as_: List[int],
     return Proof(B, gpa_proof)
 
 
+@profiling.traced("same_permutation.verify")
 def verify(proof: Proof, crs: CRS, gsum: Affine, hsum: Affine,
            A: Affine, M: Affine, as_: List[int], num_blinders: int,
            transcript: Transcript, msm_accumulator: MsmAccumulator,

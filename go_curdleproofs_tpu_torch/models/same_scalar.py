@@ -15,6 +15,7 @@ from typing import BinaryIO, Optional
 
 from ..utils import codec
 from ..utils import field_host as fh
+from ..utils import profiling
 from ..utils.field_host import Affine
 from ..utils.rand import Rand
 from ..utils.transcript import Transcript
@@ -56,6 +57,7 @@ class Proof:
         return cls(a, b, d.read_fr(), d.read_fr(), d.read_fr())
 
 
+@profiling.traced("same_scalar.prove")
 def prove(crs: CRS, R: Affine, S: Affine, T: GroupCommitment,
           U: GroupCommitment, k: int, r_t: int, r_u: int,
           transcript: Transcript, rand: Rand) -> Proof:
@@ -64,8 +66,9 @@ def prove(crs: CRS, R: Affine, S: Affine, T: GroupCommitment,
     r_b = rand.get_fr()
     r_k = rand.get_fr()
 
-    a = GroupCommitment.new(crs.gt, crs.h, fh.g1_mul(R, r_k), r_a)
-    b = GroupCommitment.new(crs.gu, crs.h, fh.g1_mul(S, r_k), r_b)
+    with profiling.span("group"):
+        a = GroupCommitment.new(crs.gt, crs.h, fh.g1_mul(R, r_k), r_a)
+        b = GroupCommitment.new(crs.gu, crs.h, fh.g1_mul(S, r_k), r_b)
 
     transcript.append_points(LABEL_POINTS, R, S, T.t1, T.t2, U.t1, U.t2,
                              a.t1, a.t2, b.t1, b.t2)
@@ -77,6 +80,7 @@ def prove(crs: CRS, R: Affine, S: Affine, T: GroupCommitment,
     return Proof(a, b, z_k, z_t, z_u)
 
 
+@profiling.traced("same_scalar.verify")
 def verify(proof: Proof, crs: CRS, R: Affine, S: Affine,
            T: GroupCommitment, U: GroupCommitment,
            transcript: Transcript,

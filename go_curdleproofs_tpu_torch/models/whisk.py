@@ -23,6 +23,7 @@ import torch
 from ..ops import codec_batch
 from ..utils import codec
 from ..utils import field_host as fh
+from ..utils import profiling
 from ..utils.field_host import Affine
 from ..utils.rand import Rand
 from ..utils.transcript import Transcript
@@ -116,6 +117,7 @@ class WhiskShuffleProof:
         return cls(m, curdleproof.Proof.from_reader(buf))
 
 
+@profiling.traced("whisk.is_valid_whisk_shuffle_proof")
 def is_valid_whisk_shuffle_proof(crs: CRS, pre_st: List[WhiskTracker],
                                  post_st: List[WhiskTracker],
                                  proof_bytes: bytes, rand: Rand, *,
@@ -126,9 +128,10 @@ def is_valid_whisk_shuffle_proof(crs: CRS, pre_st: List[WhiskTracker],
     try:
         if len(pre_st) != len(post_st):
             return False
-        pool = codec.DecodePool(device)
-        whisk_proof = WhiskShuffleProof.from_bytes(proof_bytes, pool)
-        Rs, Ss, Ts, Us = _pool_tracker_sets(pre_st, post_st, pool)
+        with profiling.span("deserialize"):
+            pool = codec.DecodePool(device)
+            whisk_proof = WhiskShuffleProof.from_bytes(proof_bytes, pool)
+            Rs, Ss, Ts, Us = _pool_tracker_sets(pre_st, post_st, pool)
         return curdleproof.verify(whisk_proof.proof, crs, Rs, Ss, Ts, Us,
                                   whisk_proof.m, rand, device=device)
     except (ValueError, EOFError):
@@ -143,6 +146,7 @@ def _pool_tracker_sets(pre_st, post_st, pool):
     return lp[:n], lp[n:2 * n], lp[2 * n:3 * n], lp[3 * n:]
 
 
+@profiling.traced("whisk.generate_whisk_shuffle_proof")
 def generate_whisk_shuffle_proof(
         crs: CRS, pre_trackers: List[WhiskTracker], rand: Rand, *,
         device: torch.device,
@@ -165,8 +169,10 @@ def generate_whisk_shuffle_proof(
 
     proof = curdleproof.prove(crs, Rs, Ss, Ts, Us, M, permutation, k, rs_m,
                               rand, device=device, prover=prover)
-    proof_bytes = WhiskShuffleProof(M, proof).serialize()
-    post_trackers = [WhiskTracker.from_points(t, u) for t, u in zip(Ts, Us)]
+    with profiling.span("serialize"):
+        proof_bytes = WhiskShuffleProof(M, proof).serialize()
+        post_trackers = [WhiskTracker.from_points(t, u)
+                         for t, u in zip(Ts, Us)]
     return post_trackers, proof_bytes
 
 

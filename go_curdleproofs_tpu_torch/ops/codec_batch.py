@@ -5,6 +5,11 @@ one batched program: the sqrt ladder (the `pow_fixed` kernel), on-curve
 validation, lexicographic y selection, and Scott's half-width subgroup test
 [lambda]P == phi(P) (ops/glv.py), then one fetch. Byte semantics match
 `codec.g1_from_bytes`, including its ValueErrors.
+
+A decode is one `decode` span (utils/profiling.py) with the children
+`parse`, `upload`, `recode`, `fetch`, `convert` and `recheck`, and the
+counters `decode.points` (points decoded) and `decode.lanes` (lanes
+launched).
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import numpy as np
 import torch
 
 from ..utils import field_host as fh
+from ..utils import profiling
 from ..utils.field_host import Affine
 from . import curve, fp, glv
 
@@ -27,7 +33,9 @@ _M_COMPRESSED_INFINITY = 0b110 << 5
 def _lambda_digits(n_lanes: int, device: torch.device) -> torch.Tensor:
     """Digits of an honest [lambda]P per lane (phi lanes zero: the subgroup
     test must not route through the endomorphism it checks)."""
-    return curve._digits(glv.digits_nophi(glv.LAMBDA, n_lanes), device)
+    with profiling.span("recode"):
+        digits = glv.digits_nophi(glv.LAMBDA, n_lanes)
+    return curve._digits(digits, device)
 
 
 def _subgroup_diffs(pv: curve.PointVec):
@@ -65,10 +73,13 @@ def batch_subgroup_check(points: Sequence[Affine], *,
     n = curve._pad_pow2(len(pts))
     pv = curve.from_affine_host(pts + [None] * (n - len(pts)), device=device)
     d1, d2 = _subgroup_diffs(pv)
-    ok = (fp.is_zero(d1) & fp.is_zero(d2)).cpu()
+    ok = fp.is_zero(d1) & fp.is_zero(d2)
+    with profiling.span("fetch"):
+        ok = ok.cpu()
     return bool(ok[: len(pts)].all())
 
 
+@profiling.traced("decode")
 def batch_decompress(blobs: Sequence[bytes], *, device: torch.device,
                      subgroup_check: bool = True) -> List[Affine]:
     """Decode 48-byte compressed G1 points: host flag and canonicality
@@ -78,38 +89,45 @@ def batch_decompress(blobs: Sequence[bytes], *, device: torch.device,
     idxs: List[int] = []
     xs: List[int] = []
     wants_largest: List[bool] = []
-    for i, b in enumerate(blobs):
-        if len(b) < 48:
-            raise ValueError("short buffer for G1 point")
-        meta = b[0] & _M_MASK
-        if meta == _M_COMPRESSED_INFINITY:
-            if any(bytes([b[0] & ~_M_MASK & 0xFF]) + bytes(b[1:48])):
-                raise ValueError("invalid infinity encoding")
-            continue
-        if meta not in (_M_COMPRESSED_SMALLEST, _M_COMPRESSED_LARGEST):
-            raise ValueError(f"invalid point encoding flags: {b[0]:#x}")
-        xb = bytearray(b[:48])
-        xb[0] &= ~_M_MASK & 0xFF
-        x = int.from_bytes(xb, "big")
-        if x >= fh.P:
-            raise ValueError("x coordinate not canonical")
-        idxs.append(i)
-        xs.append(x)
-        wants_largest.append(meta == _M_COMPRESSED_LARGEST)
+    with profiling.span("parse"):
+        for i, b in enumerate(blobs):
+            if len(b) < 48:
+                raise ValueError("short buffer for G1 point")
+            meta = b[0] & _M_MASK
+            if meta == _M_COMPRESSED_INFINITY:
+                if any(bytes([b[0] & ~_M_MASK & 0xFF]) + bytes(b[1:48])):
+                    raise ValueError("invalid infinity encoding")
+                continue
+            if meta not in (_M_COMPRESSED_SMALLEST, _M_COMPRESSED_LARGEST):
+                raise ValueError(f"invalid point encoding flags: {b[0]:#x}")
+            xb = bytearray(b[:48])
+            xb[0] &= ~_M_MASK & 0xFF
+            x = int.from_bytes(xb, "big")
+            if x >= fh.P:
+                raise ValueError("x coordinate not canonical")
+            idxs.append(i)
+            xs.append(x)
+            wants_largest.append(meta == _M_COMPRESSED_LARGEST)
     if not xs:
         return results
 
     n = curve._pad_pow2(len(xs))
-    xe = fp.from_ints(xs + [1] * (n - len(xs)), device)   # pad with x=1 lanes
-    wl = torch.from_numpy(
-        np.array(wants_largest + [False] * (n - len(xs)))).to(device)
+    profiling.count("decode.points", len(xs))
+    profiling.count("decode.lanes", n)
+    with profiling.span("upload"):
+        xe = fp.from_ints(xs + [1] * (n - len(xs)), device)  # x=1 pad lanes
+        wl = torch.from_numpy(
+            np.array(wants_largest + [False] * (n - len(xs)))).to(device)
     y, ok = _decode_program(xe, wl)
     ys = fp.to_ints(y[: len(xs)])
-    ok = ok[: len(xs)].cpu()
-    for i, x, yv in zip(idxs, xs, ys):
-        if yv * yv % fh.P != (x * x % fh.P * x + fh.B_COEFF) % fh.P:
-            raise ValueError("point not on curve")
-        results[i] = (x, yv)
+    ok = ok[: len(xs)]
+    with profiling.span("fetch"):
+        ok = ok.cpu()
+    with profiling.span("recheck"):
+        for i, x, yv in zip(idxs, xs, ys):
+            if yv * yv % fh.P != (x * x % fh.P * x + fh.B_COEFF) % fh.P:
+                raise ValueError("point not on curve")
+            results[i] = (x, yv)
     if subgroup_check and not bool(ok.all()):
         # on-curve failures raised above; what is left fails the subgroup
         raise ValueError("point not in prime-order subgroup")

@@ -27,6 +27,15 @@ The host prover's device API is `StackedVec.msm_many` (one wide-phase launch
 over all (job, base row) terms, one Horner launch, one fetch) behind the
 scalar-side folding view `FoldedBases`, plus `msm_batch` and
 `batch_scalar_mul`.
+
+Spans (utils/profiling.py): `msm` around each host-facing MSM and
+`batch_scalar_mul`, with the children `recode` (host GLV recoding and the
+stacking of its digits), `upload` (`from_affine_host`, `_digits`),
+`fetch` (the blocking copy back) and `convert` (host normalisation of what
+came back), and the counters `msm.terms` (bases with a non-zero scalar)
+and `msm.lanes` (base lanes launched: rows x padded width); `expand`
+around `FoldedBases`' scalar-side folding and `fold` around
+`StackedVec.fold`.
 """
 
 from __future__ import annotations
@@ -108,6 +117,7 @@ def _unstack_points(pv: PointVec) -> List[PointVec]:
 
 # -- host <-> device ------------------------------------------------------------
 
+@profiling.traced("upload")
 def from_affine_host(pts: Sequence[Affine], *,
                      device: torch.device) -> PointVec:
     """Host affine points -> [n] PointVec (infinity -> (0:1:0))."""
@@ -120,13 +130,13 @@ def to_affine_host(p: PointVec) -> List[Affine]:
     """Projective -> host affine over the flattened batch: one stacked
     device-to-host copy, then one host batch inversion (Z == 0 is
     infinity, whatever Y holds)."""
-    with profiling.span("to_affine_host.fetch"):
-        ints = fp.to_ints(torch.stack([p.x, p.y, p.z]))
+    ints = fp.to_ints(torch.stack([p.x, p.y, p.z]))
     n = len(ints) // 3
     xs, ys, zs = ints[:n], ints[n:2 * n], ints[2 * n:]
     out: List[Affine] = []
-    for x, y, zi in zip(xs, ys, fh.fp_batch_inv(zs)):
-        out.append(None if zi == 0 else (x * zi % fh.P, y * zi % fh.P))
+    with profiling.span("convert"):
+        for x, y, zi in zip(xs, ys, fh.fp_batch_inv(zs)):
+            out.append(None if zi == 0 else (x * zi % fh.P, y * zi % fh.P))
     return out
 
 
@@ -140,9 +150,11 @@ def to_affine_host_xy(p: PointVec) -> List[Affine]:
     (compress_dev.compress_xy: the inverse ladder kernel, two products):
     96 bytes per point come back and the host only recomposes ints."""
     from . import compress_dev
-    with profiling.span("to_affine_host_xy"):
-        rows = compress_dev.compress_xy(p).cpu().numpy()
-        return [compress_dev.decode_xy_host(r) for r in rows]
+    rows = compress_dev.compress_xy(p)
+    with profiling.span("fetch"):
+        rows = rows.cpu()
+    with profiling.span("convert"):
+        return [compress_dev.decode_xy_host(r) for r in rows.numpy()]
 
 
 # -- GLV tables, select and reduce ----------------------------------------------
@@ -153,9 +165,20 @@ def scalars_to_digits(scalars: Sequence[int]) -> np.ndarray:
     return glv.scalars_to_digits_glv([int(s) % fh.R for s in scalars])
 
 
+@profiling.traced("upload")
 def _digits(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     return halflimb.upload(np.ascontiguousarray(arr, dtype=np.int32),
                            torch.int32, device)
+
+
+def _count_bases(digits: np.ndarray) -> None:
+    """The counters `msm.lanes` and `msm.terms` of an MSM's host digits
+    [..., 2n, W]: its base lanes, and those whose scalar is not zero."""
+    if profiling.recording():
+        per_base = digits.reshape(-1, 2 * NUM_WINDOWS)
+        profiling.count("msm.lanes", per_base.shape[0])
+        profiling.count("msm.terms",
+                        int(np.count_nonzero(per_base.any(axis=1))))
 
 
 def _beta_elem(device: torch.device) -> torch.Tensor:
@@ -394,7 +417,9 @@ def _gamma_digits(gammas: Sequence[int], h: int,
                   device: torch.device) -> torch.Tensor:
     """[k] gammas -> [k, 2h, W] GLV digits: each gamma recoded once on the
     host, uploaded as [2, W] and repeated over the h lanes on the device."""
-    one = _digits(np.stack([scalars_to_digits([g]) for g in gammas]), device)
+    with profiling.span("recode"):
+        one = np.stack([scalars_to_digits([g]) for g in gammas])
+    one = _digits(one, device)
     return one[:, None].expand(-1, h, -1, -1).reshape(
         len(gammas), 2 * h, NUM_WINDOWS)
 
@@ -442,6 +467,7 @@ class StackedVec:
         return cls(pmap(lambda t: t.reshape(len(vecs), n, fp.NWORDS),
                         from_affine_host(flat, device=device)), widest)
 
+    @profiling.traced("msm")
     def msm_many(self, jobs: Sequence[Sequence[MsmTerm]]) -> List[Affine]:
         """jobs[j] = [(base_row, scalars, offset), ...] summed into output
         j: out[j] = sum_i <scalars_i, row b_i[off_i : off_i + len]>. Every
@@ -449,24 +475,25 @@ class StackedVec:
         all terms, ONE Horner launch, ONE fetch, then the host adds each
         term's point to its owner."""
         digit_rows, rows_idx, owners = [], [], []
-        for j, terms in enumerate(jobs):
-            for (row, scalars, offset) in terms:
-                if offset < 0 or offset + len(scalars) > self.width:
-                    raise ValueError("msm_many: scalars run past the row")
-                sc = [0] * self.width
-                sc[offset:offset + len(scalars)] = scalars
-                digit_rows.append(scalars_to_digits(sc))
-                rows_idx.append(row)
-                owners.append(j)
+        with profiling.span("recode"):
+            for j, terms in enumerate(jobs):
+                for (row, scalars, offset) in terms:
+                    if offset < 0 or offset + len(scalars) > self.width:
+                        raise ValueError("msm_many: scalars run past the row")
+                    sc = [0] * self.width
+                    sc[offset:offset + len(scalars)] = scalars
+                    digit_rows.append(scalars_to_digits(sc))
+                    rows_idx.append(row)
+                    owners.append(j)
+            digits = np.stack(digit_rows) if owners else None
         res: List[Affine] = [None] * len(jobs)
         if not owners:
             return res
-        with profiling.span(f"msm_many[{len(jobs)}x{self.k}x{self.width}]"):
-            out = msm_rows_points_from_table(
-                self.table(), _digits(np.stack(digit_rows), self.pv.x.device),
-                rows_idx)
-            for j, pt in zip(owners, to_affine_host(out)):
-                res[j] = fh.g1_add(res[j], pt)
+        _count_bases(digits)
+        out = msm_rows_points_from_table(
+            self.table(), _digits(digits, self.pv.x.device), rows_idx)
+        for j, pt in zip(owners, to_affine_host(out)):
+            res[j] = fh.g1_add(res[j], pt)
         return res
 
     def fold(self, gammas) -> "StackedVec":
@@ -478,7 +505,7 @@ class StackedVec:
             gammas = [gammas] * self.k
         if len(gammas) != self.k:
             raise ValueError(f"fold: {len(gammas)} gammas for {self.k} rows")
-        with profiling.span(f"fold[{self.k}x{self.width}]"):
+        with profiling.span("fold"):
             h = self.n_valid // 2
             digits = _gamma_digits(gammas, h, self.pv.x.device)
             return StackedVec(fold_device(self.pv, digits, h), h)
@@ -542,9 +569,10 @@ class FoldedBases:
         return u
 
     def msm_many(self, jobs: Sequence[Sequence[MsmTerm]]) -> List[Affine]:
-        return self.sv.msm_many(
-            [[(self.rows[r], self._expand(r, sc, off), 0)
-              for (r, sc, off) in terms] for terms in jobs])
+        with profiling.span("expand"):
+            jobs = [[(self.rows[r], self._expand(r, sc, off), 0)
+                     for (r, sc, off) in terms] for terms in jobs]
+        return self.sv.msm_many(jobs)
 
 
 class DeviceVec:
@@ -567,6 +595,7 @@ class DeviceVec:
         return cls(from_affine_host(list(pts) + [None] * (n - len(pts)),
                                     device=device), len(pts))
 
+    @profiling.traced("msm")
     def msm(self, scalars: Sequence[int], offset: int = 0) -> Affine:
         """<scalars, self[offset : offset + len(scalars)]>: the window sums
         and their Horner combination on the device (`msm_device`), one
@@ -575,7 +604,10 @@ class DeviceVec:
             raise ValueError("DeviceVec.msm: scalars run past the vector")
         sc = [0] * self.width
         sc[offset:offset + len(scalars)] = scalars
-        digits = _digits(scalars_to_digits(sc), self.pv.x.device)
+        with profiling.span("recode"):
+            digits = scalars_to_digits(sc)
+        _count_bases(digits)
+        digits = _digits(digits, self.pv.x.device)
         return to_affine_host_single(msm_device(self.pv, digits))
 
     def fold(self, gamma: int) -> "DeviceVec":
@@ -640,12 +672,16 @@ def _dynamic_windows(points: Sequence[Affine], scalars: Sequence[int],
     sc = list(scalars) + [0] * (k * w - len(scalars))
     sv = StackedVec.from_affine([pts[i * w:(i + 1) * w] for i in range(k)],
                                 device=device, pad_to=w)
-    digits = _digits(np.stack([scalars_to_digits(sc[i * w:(i + 1) * w])
-                               for i in range(k)]), device)    # [k, 2w, W]
+    with profiling.span("recode"):
+        digits = np.stack([scalars_to_digits(sc[i * w:(i + 1) * w])
+                           for i in range(k)])                 # [k, 2w, W]
+    _count_bases(digits)
+    digits = _digits(digits, device)
     return _sum_rows(msm_rows_windows_from_table(sv.table(), digits,
                                                  list(range(k))))
 
 
+@profiling.traced("msm")
 def msm(points: Sequence[Affine], scalars: Sequence[int], *,
         device: torch.device) -> Affine:
     """<scalars, points> (scalars taken mod r)."""
@@ -656,6 +692,7 @@ def msm(points: Sequence[Affine], scalars: Sequence[int], *,
     return to_affine_host(horner(_dynamic_windows(points, scalars, device)))[0]
 
 
+@profiling.traced("msm")
 def msm_with_static(static_sv: StackedVec, static_scalars: Sequence[int],
                     points: Sequence[Affine],
                     scalars: Sequence[int]) -> Affine:
@@ -666,13 +703,17 @@ def msm_with_static(static_sv: StackedVec, static_scalars: Sequence[int],
         raise ValueError("msm_with_static: len(points) != len(scalars)")
     device = static_sv.pv.x.device
     st = list(static_scalars) + [0] * (static_sv.width - len(static_scalars))
-    st_dig = _digits(scalars_to_digits(st)[None], device)
+    with profiling.span("recode"):
+        st_dig = scalars_to_digits(st)[None]
+    _count_bases(st_dig)
+    st_dig = _digits(st_dig, device)
     acc = msm_rows_windows_from_table(static_sv.table(), st_dig, [0])
     if points:
         acc = add(acc, _dynamic_windows(points, scalars, device))
     return to_affine_host(horner(acc))[0]
 
 
+@profiling.traced("msm")
 def batch_scalar_mul(points: Sequence[Affine], scalars: Sequence[int], *,
                      device: torch.device) -> List[Affine]:
     """[s_i * P_i] in one batched scalar multiplication."""
@@ -681,9 +722,11 @@ def batch_scalar_mul(points: Sequence[Affine], scalars: Sequence[int], *,
     if not points:
         return []
     n = _pad_pow2(len(points))
-    with profiling.span(f"batch_scalar_mul[{n}]"):
-        pv = from_affine_host(list(points) + [None] * (n - len(points)),
-                              device=device)
-        sc = list(scalars) + [0] * (n - len(scalars))
-        out = scalar_mul_device(pv, _digits(scalars_to_digits(sc), device))
-        return to_affine_host_xy(out)[: len(points)]
+    pv = from_affine_host(list(points) + [None] * (n - len(points)),
+                          device=device)
+    sc = list(scalars) + [0] * (n - len(scalars))
+    with profiling.span("recode"):
+        digits = scalars_to_digits(sc)
+    _count_bases(digits)
+    out = scalar_mul_device(pv, _digits(digits, device))
+    return to_affine_host_xy(out)[: len(points)]

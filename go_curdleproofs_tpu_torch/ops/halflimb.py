@@ -26,6 +26,8 @@ from typing import List, Sequence
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 MASK = 0xFFFF
 DTYPE = torch.int32
 
@@ -215,12 +217,18 @@ class Field:
 
     def to_ints(self, x: torch.Tensor) -> List[int]:
         """[..., nwords] elements -> canonical Python ints (leaves
-        Montgomery form), flattened over the batch dims."""
+        Montgomery form), flattened over the batch dims: a `fetch` span
+        around the blocking copy, a `convert` span around the host's
+        conversion."""
         nbytes = 4 * self.nwords
-        raw = x.reshape(-1, self.nwords).cpu().numpy().view("<u4").tobytes()
-        return [int.from_bytes(raw[nbytes * i:nbytes * (i + 1)], "little")
-                * self.r_inv % self.modulus
-                for i in range(len(raw) // nbytes)]
+        flat = x.reshape(-1, self.nwords)
+        with profiling.span("fetch"):
+            host = flat.cpu()
+        with profiling.span("convert"):
+            raw = host.numpy().view("<u4").tobytes()
+            return [int.from_bytes(raw[nbytes * i:nbytes * (i + 1)], "little")
+                    * self.r_inv % self.modulus
+                    for i in range(len(raw) // nbytes)]
 
     def constant(self, v: int, shape=(), *,
                  device: torch.device) -> torch.Tensor:

@@ -23,6 +23,7 @@ import torch.distributed as dist
 from ..models import curdleproof, whisk
 from ..models.msm_accumulator import MsmAccumulator, StaticBases
 from ..utils import codec
+from ..utils import profiling
 from ..utils.rand import Rand
 from . import msm as pmsm
 
@@ -37,6 +38,7 @@ class ShardedMsmAccumulator(MsmAccumulator):
         super().__init__(device=device, static_bases=static_bases)
         self.group = group
 
+    @profiling.traced("final_msm")
     def verify(self) -> bool:
         if self.group is None:
             return super().verify()
@@ -48,6 +50,7 @@ class ShardedMsmAccumulator(MsmAccumulator):
                                 group=self.group) is None
 
 
+@profiling.traced("batch.verify_shuffle_proofs_batch")
 def verify_shuffle_proofs_batch(crs: whisk.CRS, instances: Sequence[tuple],
                                 rand: Rand, *, device: torch.device,
                                 group: Optional[dist.ProcessGroup] = None

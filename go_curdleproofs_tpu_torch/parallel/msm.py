@@ -21,6 +21,7 @@ import torch
 import torch.distributed as dist
 
 from ..ops import curve
+from ..utils import profiling
 from ..utils.field_host import Affine
 
 
@@ -54,6 +55,7 @@ def _shard(n: int, rank: int, world: int) -> slice:
     return slice(lo, min(lo + per, n))
 
 
+@profiling.traced("msm")
 def sharded_msm(points: Sequence[Affine], scalars: Sequence[int], *,
                 device: torch.device,
                 group: Optional[dist.ProcessGroup] = None) -> Affine:

@@ -10,11 +10,11 @@ given:
 
   * wall time of REPS warm runs (each ends in a synchronise), median and
     range;
-  * the split by section, from host clocks around the section's function
-    with a synchronise at its end: batched decode, batched scalar
-    multiplication, MSM calls (with the host digit recoding and the fetch
-    inside them counted apart), and the rest, which is host work:
-    transcript, Fr arithmetic, single-point group operations;
+  * the split by the program's own spans (utils/profiling.py), from runs
+    with the spans on: self time and calls a run of each span name (the
+    root, the transcript, each sub-argument, decode and its parts, the
+    MSMs and their recoding, uploads, fetches and conversions), and the
+    counters (points decoded, lanes, MSM terms and lanes) a run;
   * from torch.profiler over the same number of runs: CUDA kernel launches
     per run, device time per run and the device-busy share of the wall time,
     and the device time of the top 8 kernels and of each of the port's own,
@@ -27,12 +27,12 @@ Before the paths it measures the launch floor: the time a launch of a
 one-element torch fill (zero_() on one int32) takes on the card, read by
 the same profiler, which is the least a launch of any kernel takes there.
 
-The section clocks add a synchronise per section, so the sections are timed
-in their own runs, apart from the wall-time runs.
+The spans are timed in their own runs, apart from the wall-time runs; they
+synchronise nothing, so a span around device work times its enqueue, and
+the `fetch` spans the waits for the card.
 
 Then batched verification (parallel/batch.py) of 8 and 32 distinct ELL=124
-proofs on a one-rank NCCL group, with the same sections (decode, the final
-MSM, the rest: transcript replay) and counts.
+proofs on a one-rank NCCL group, with the same spans and counts.
 
 For the device-resident prover (prover="device") the sections are its
 pieces, timed with CUDA events recorded in the stream (no synchronise, so
@@ -60,56 +60,12 @@ from .models import (curdleproof, device_prover2, device_prover_full,
 from .ops import codec_batch, curve, kernels
 from .parallel import batch as pbatch
 from .parallel import msm as pmsm
+from .utils import profiling
 from .utils.rand import Rand
 
 ROOT = Path(__file__).resolve().parents[1]
 FIXTURE = ROOT / "tests" / "fixture_whisk_ell124.json"
 REPS = 5
-
-# (owner, attribute, section name); nested sections are reported apart
-SECTIONS = [
-    (codec_batch, "batch_decompress", "decode"),
-    (curve, "batch_scalar_mul", "batch_scalar_mul"),
-    (curve, "msm_with_static", "final_msm"),
-    (pmsm, "sharded_msm", "final_msm"),
-    (curve.StackedVec, "msm_many", "msm_many"),
-    (curve, "scalars_to_digits", "inside: host digit recoding"),
-    (curve, "to_affine_host", "inside: fetch + host normalisation"),
-    (curve, "to_affine_host_xy", "inside: compress_xy + fetch"),
-    (curve, "build_table", "inside: table build"),
-]
-
-
-class SectionClock:
-    """Wraps the section functions with synchronised host clocks."""
-
-    def __init__(self):
-        self.ms = defaultdict(float)
-        self.calls = defaultdict(int)
-        self._saved = []
-
-    def __enter__(self):
-        for owner, attr, name in SECTIONS:
-            fn = getattr(owner, attr)
-            self._saved.append((owner, attr, fn))
-            setattr(owner, attr, self._wrap(fn, name))
-        return self
-
-    def __exit__(self, *exc):
-        for owner, attr, fn in self._saved:
-            setattr(owner, attr, fn)
-
-    def _wrap(self, fn, name):
-        def timed(*args, **kwargs):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*args, **kwargs)
-            torch.cuda.synchronize()
-            self.ms[name] += (time.perf_counter() - t0) * 1e3
-            self.calls[name] += 1
-            return out
-        return timed
-
 
 # the device prover's pieces: (owner, attribute)
 PIECES = [
@@ -301,11 +257,31 @@ def _wall_ms(fn):
     return (time.perf_counter() - t0) * 1e3
 
 
+def span_split(fn) -> tuple:
+    """REPS runs of fn with the spans on: (their walls, {span name: self
+    ms and calls a run}, {counter: its sum a run})."""
+    profiling.reset()
+    profiling.enable()
+    try:
+        walls = [_wall_ms(fn) for _ in range(REPS)]
+    finally:
+        profiling.disable()
+    recs = profiling.drain()
+    own = profiling.self_ns(recs)
+    spans = defaultdict(lambda: dict(self_ms_per_run=0.0, calls_per_run=0.0))
+    counts = defaultdict(float)
+    for r in recs:
+        spans[r.name]["self_ms_per_run"] += own[r.id] / 1e6 / REPS
+        spans[r.name]["calls_per_run"] += 1 / REPS
+        for k, v in (r.counts or {}).items():
+            counts[k] += v / REPS
+    return walls, dict(spans), dict(counts)
+
+
 def profile(name: str, fn) -> dict:
     fn()                                                  # warm
     walls = [_wall_ms(fn) for _ in range(REPS)]
-    with SectionClock() as clock:
-        sect_walls = [_wall_ms(fn) for _ in range(REPS)]
+    span_walls, spans, counts = span_split(fn)
     kernels.reset_launches()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
@@ -317,16 +293,13 @@ def profile(name: str, fn) -> dict:
     n_kernels = sum(e.count for e in cuda_events)
     device_ms = sum(e.self_device_time_total for e in cuda_events) / 1e3
     top = _top_kernels(cuda_events)
-    sections = {k: dict(ms_per_run=v / REPS, calls_per_run=clock.calls[k]
-                        / REPS) for k, v in clock.ms.items()}
-    outer = sum(v["ms_per_run"] for k, v in sections.items()
-                if not k.startswith("inside"))
     res = dict(
         wall_ms_median=statistics.median(walls), wall_ms_min=min(walls),
         wall_ms_max=max(walls),
-        sectioned_wall_ms_median=statistics.median(sect_walls),
-        sections=sections,
-        host_rest_ms_per_run=statistics.mean(sect_walls) - outer,
+        spanned_wall_ms_median=statistics.median(span_walls),
+        spans=dict(sorted(spans.items(),
+                          key=lambda kv: -kv[1]["self_ms_per_run"])),
+        counters_per_run=counts,
         cuda_kernel_launches_per_run=n_kernels / REPS,
         device_ms_per_run=device_ms / REPS,
         device_busy_share=device_ms / sum(prof_walls),

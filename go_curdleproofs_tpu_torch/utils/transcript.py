@@ -7,6 +7,8 @@ transcript/transcript.go of the Go reference byte for byte:
   * challenges are 32-byte PRF outputs rejection-sampled until canonical Fr,
     and each accepted challenge is appended back into the transcript
     (transcript.go:48-58 — required for cross-implementation compatibility).
+
+Every public method is one `transcript` span (utils/profiling.py).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import List
 from . import codec
 from . import field_host as fh
 from . import strobe
+from .profiling import traced
 from .field_host import Affine
 from .merlin import MerlinTranscript
 
@@ -26,6 +29,7 @@ class Transcript:
     def __init__(self, label: bytes):
         self.inner = MerlinTranscript(label)
 
+    @traced("transcript")
     def append_message(self, label: bytes, message: bytes) -> None:
         self.inner.append_message(label, message)
 
@@ -41,18 +45,25 @@ class Transcript:
             for m in msgs:
                 self.inner.append_message(label, m)
 
+    @traced("transcript")
     def append_points(self, label: bytes, *points: Affine) -> None:
         self._append_bulk(label, [codec.point_bytes(pt) for pt in points],
                           codec.G1_COMPRESSED_SIZE)
 
+    @traced("transcript")
     def append_scalars(self, label: bytes, *scalars: int) -> None:
         self._append_bulk(label, [codec.fr_to_bytes(s) for s in scalars],
                           codec.FR_SIZE)
 
+    @traced("transcript")
     def get_and_append_challenge(self, label: bytes) -> int:
-        return self.get_and_append_challenges(label, 1)[0]
+        return self._challenges(label, 1)[0]
 
+    @traced("transcript")
     def get_and_append_challenges(self, label: bytes, count: int) -> List[int]:
+        return self._challenges(label, count)
+
+    def _challenges(self, label: bytes, count: int) -> List[int]:
         """Rejection-sampled canonical challenges, each re-absorbed
         (transcript.go:48-58); one native C call for the whole vector."""
         if strobe.has_native_bulk():

@@ -70,10 +70,11 @@ NOT_PORTED = {
                                                 "(expand) does it in place",
     "models/device_mode.py:device_prover_version": "the port's prover is an "
         "argument (check_prover), never read from CURDLE_DEVICE_PROVER",
-    "utils/profiling.py:ENABLED": "renamed: profiling.enabled() reads "
-                                  "CURDLE_PROFILE at each span",
-    "utils/profiling.py:jax_trace": "renamed: profiling.torch_trace "
-                                    "(CURDLE_TORCH_TRACE)",
+    "utils/profiling.py:ENABLED": "profiling.recording(): CURDLE_PROFILE "
+                                  "is read once at import (enable()), and "
+                                  "torch.profiler turns spans on",
+    "utils/profiling.py:jax_trace": "torch.profiler's own trace; the spans "
+                                    "map onto its clock (profiler_us)",
 }
 
 
@@ -141,5 +142,6 @@ def test_census_counts_the_newest_names():
     assert {"SState", "from_host", "to_host", "absorb", "squeeze", "meta_ad",
             "ad", "prf", "append_message", "challenge_bytes",
             "get_and_append_challenge"} <= PORT["ops/strobe_dev.py"]
-    assert {"span", "report", "reset", "torch_trace"} \
+    assert {"span", "traced", "count", "records", "drain", "report",
+            "reset", "enable", "disable", "profiler_us"} \
         <= PORT["utils/profiling.py"]
