@@ -11,10 +11,20 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
      per source, started together) and the host C library with cc; ptxas
      must report no stack frame and no spills for point_add_kernel,
      point_double_kernel, every instance of mont_mul_kernel,
-     fr_mont_mul_kernel and strobe_challenge32_kernel;
-  3. each of the eleven kernels against its plain torch version on the card,
-     at the shapes the verifier and the provers give it, compared exactly by
-     value (integers, tolerance 0), with timings and roofline bounds;
+     fr_mont_mul_kernel, strobe_challenge32_kernel and
+     decode_points_kernel;
+  3. decode_points at 1, 17, 248, 585, 2,141 and 18,720 points (subgroup
+     points of both signs, x off the curve, points on the curve outside the
+     subgroup, the order-3 point) against its plain version word for word
+     and flag for flag, and its flags and y against the host; timed at 585
+     and 2,141 points by CUDA events and the profiler beside the bound of
+     benchmark/core/roofline.py; one batch_decompress on the card is one
+     decode_points launch, no other kernel and one device-to-host copy, and
+     raises the host codec's errors, on-curve first;
+     then each of the other eleven kernels against its plain torch version
+     on the card, at the shapes the verifier and the provers give it,
+     compared exactly by value (integers, tolerance 0), with timings and
+     roofline bounds;
      point_add at 1, 2, 4, 7, 24, 33, 1025 and [4, 1, 1024] points and
      point_double at 1, 4, 24, 1024 and 1025, with infinity in either or
      both operands, P + P, P + (-P) and P + P through one tensor, also
@@ -55,9 +65,10 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
      launches a device prove, and fr_mont_mul at every batch size of that
      prove (recorded as it runs) exact against its plain version, as
      pairs and broadcast on either side, with its time a launch on the
-     card. point_add and point_double are launched exactly 6 and 2 times a
-     verify, 14 and 6 a prove, 64 and 15 a device prove, mont_mul 9, 18
-     and 146; the counted device prove runs with the spans on
+     card. point_add and point_double are launched exactly 3 and 1 times a
+     verify, 11 and 5 a prove, 61 and 14 a device prove, mont_mul 1, 10
+     and 138, decode_points once each; the counted device prove runs
+     with the spans on
      (profiling.enable()) and prints its span table (the spans inside the chain run under the
      sync-debug mode too);
   8. (run before phase 7) physical folding, the device MSM entry points,
@@ -89,8 +100,8 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
      proof rejected, launch counts pinned, warm batch ms and proofs/s on
      the group and with no group beside the same proofs verified one by
      one; the inputs of every launch shape of the b32 verify recorded as
-     it runs (msm_select_reduce on 3 rows of 8,192 lanes, windowed_combine
-     and pow_fixed at the decode's sizes, mont_mul, point_add,
+     it runs (msm_select_reduce on 3 rows of 8,192 lanes, decode_points
+     at the decode's size, windowed_combine, mont_mul, point_add,
      point_double) and each kernel held there against its plain version,
      with its time and bound; the b32 final MSM's 11,227 bases through
      sharded_msm again with three scalars moved, against the host.
@@ -152,11 +163,13 @@ REPLACES = {
     "fr_mont_mul": "go_curdleproofs_tpu/ops/limb_field.py:234",
     "strobe_absorb_stream": "go_curdleproofs_tpu/ops/strobe_dev.py:314",
     "strobe_challenge32": "go_curdleproofs_tpu/ops/strobe_dev.py:361",
+    "decode_points": "go_curdleproofs_tpu/ops/codec_batch.py:58",
 }
-# the kernels that the verifier and the host-orchestrated prover run; the
-# device-resident prover runs all of REPLACES
-EARLIER_KERNELS = ("mont_mul", "point_add", "point_double", "pow_fixed",
-                   "windowed_combine", "msm_select_reduce")
+# the kernels that the verifier and the host-orchestrated prover run (the
+# host prover's inverses run pow_fixed too); the device-resident prover runs
+# all of REPLACES
+EARLIER_KERNELS = ("mont_mul", "point_add", "point_double",
+                   "windowed_combine", "msm_select_reduce", "decode_points")
 FIXTURE = os.path.join(ROOT, "tests", "fixture_whisk_ell124.json")
 GOLDEN = os.path.join(ROOT, "tests", "golden_vectors.json")
 SMS_FLIP_BYTE = 4520      # inside the same-multiscalar scalar x (4504-4535)
@@ -164,18 +177,19 @@ PROVE_SEED = 0x5EED       # Rand seed of the ELL=124 prove
 # wrapper calls of one run at ELL=124 that a redesign of the kernels must
 # leave as they are
 PATH_LAUNCHES = {
-    "verify": dict(windowed_combine=2, msm_select_reduce=2, point_add=6,
-                   point_double=2, mont_mul=9),
-    "prove": dict(windowed_combine=23, msm_select_reduce=21, point_add=14,
-                  point_double=6, mont_mul=18),
-    "device prove": dict(windowed_combine=23, msm_select_reduce=21,
-                         point_add=64, point_double=15, mont_mul=146),
+    "verify": dict(windowed_combine=1, msm_select_reduce=2, point_add=3,
+                   point_double=1, mont_mul=1, decode_points=1),
+    "prove": dict(windowed_combine=22, msm_select_reduce=21, point_add=11,
+                  point_double=5, mont_mul=10, decode_points=1),
+    "device prove": dict(windowed_combine=22, msm_select_reduce=21,
+                         point_add=61, point_double=14, mont_mul=138,
+                         decode_points=1),
 }
 # kernels that ptxas must compile with no stack frame and no spills (every
 # instance of a template)
 NO_STACK_KERNELS = ("point_add_kernel", "point_double_kernel",
                     "mont_mul_kernel", "fr_mont_mul_kernel",
-                    "strobe_challenge32_kernel")
+                    "strobe_challenge32_kernel", "decode_points_kernel")
 
 # The card's peaks for the roofline bound (NVIDIA H100 SXM data sheet and
 # Hopper white paper): 3.35e12 bytes/s of HBM3; 67e12 float32 FLOP/s outside
@@ -254,14 +268,15 @@ FR_MADS_PER_SQUARE = 8 * 9 // 2 + 8 * 8    # 36 partial products, reduction
 # launches of one ELL=124 device prove that a redesign must leave as they are
 BATCH_SIZES = (8, 32)     # chained batches, beside the fixture's two proofs
 # wrapper calls of one batch verify of 2, 8 and 32 distinct ELL=124 proofs
-# on a one-rank group (phase 7): one decode and one final MSM whatever the
-# batch; b32's ~19,000 bases take 5 rows of 4,096, added by a tree
-_BATCH_FEW = dict(mont_mul=9, point_add=5, point_double=2, pow_fixed=1,
-                  windowed_combine=2, msm_select_reduce=1, point_x16_add=0,
+# on a one-rank group (phase 7): one decode (one decode_points launch) and
+# one final MSM whatever the batch; b32's ~19,000 bases take 5 rows of
+# 4,096, added by a tree
+_BATCH_FEW = dict(mont_mul=1, point_add=2, point_double=1, pow_fixed=0,
+                  windowed_combine=1, msm_select_reduce=1, point_x16_add=0,
                   fr_pow_fixed=0, fr_mont_mul=0, strobe_absorb_stream=0,
-                  strobe_challenge32=0)
+                  strobe_challenge32=0, decode_points=1)
 BATCH_LAUNCHES = {2: _BATCH_FEW, 8: _BATCH_FEW,
-                  32: dict(_BATCH_FEW, point_add=7)}
+                  32: dict(_BATCH_FEW, point_add=4)}
 # spans of a device prove with the spans on (profiling.enable(); the middle
 # six inside the chain, which runs under sync-debug "error")
 DEVICE_PROVE_SPANS = ("dpf.host.step1", "dpf.host.draws", "dpf.upload",
@@ -531,7 +546,8 @@ def phase_kernels(dev: torch.device) -> dict:
             res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
 
     # B1: the beta multiply of a table's x plane (one element against
-    # [9, 1, 2048]) and the decoder's elementwise products ([2 * 1024])
+    # [9, 1, 2048]) and 2,048 elementwise products (the decoder's before
+    # decode_points)
     vals = [0, 1, fh.P - 1] + [rng.randrange(fh.P) for _ in range(2045)]
     a = fp.from_ints(vals, dev)
     b = fp.from_ints(vals[::-1], dev)
@@ -678,7 +694,8 @@ def phase_kernels(dev: torch.device) -> dict:
           "both operands, P + P, P + (-P)) and P + P through one tensor "
           "exact against the plain versions and the host's group law")
 
-    # B7: the decode's sqrt ladder over the 1024-lane pool and the provers'
+    # B7: the sqrt ladder over 1024 lanes (the decoder's before
+    # decode_points) and the provers'
     # inverse ladders ([256], [24], [1]; exponent p - 2, with 0)
     for n, e, what in ((1024, (fh.P + 1) // 4, "sqrt"),
                        (256, fh.P - 2, "inverse"), (24, fh.P - 2, "inverse"),
@@ -790,7 +807,7 @@ def phase_kernels(dev: torch.device) -> dict:
         dig[0, :17, 0] = torch.arange(-8, 9, dtype=torch.int32)
         sums[n2], _ = check_msm(tab, dig.to(dev), keep=True)
 
-    # B5: final MSM Horner [33, 1], a ragged [33, 7], the decode's subgroup
+    # B5: final MSM Horner [33, 1], a ragged [33, 7], the old decode's subgroup
     # Horner [33, 2048]
     dig = _rand_digits((2048, W), rng).to(dev)
     sel_big = curve.pmap(lambda t: t.contiguous(), curve.table_select_windows(
@@ -822,6 +839,170 @@ def phase_kernels(dev: torch.device) -> dict:
                   fh.g1_mul(q, 16 ** (W - 10)), q],
           "windowed_combine corner rows against the host's group law")
     return res
+
+
+# decode_points at one point, a ragged 17, the two verify cells' decodes
+# (585 and 2,141 points), the 248 of a prove and a 32-proof batch's ~18,720
+DECODE_SIZES = (1, 17, 248, 585, 2141, 18720)
+DECODE_TIMED = (585, 2141)
+
+
+def decode_inputs(n: int, rng: random.Random):
+    """n compressed points for decode_points: subgroup points of both signs,
+    and every eighth (from the fourth on) one of: an x whose x^3 + 4 is no
+    square, an on-curve point outside the subgroup (a fixed one plus a
+    subgroup point), the order-3 point (0, +-2). Returns (x bytes [n, 48]
+    with the flag bits cleared, signs [n], the expected flags, the expected
+    y or None where x is off the curve)."""
+    from go_curdleproofs_tpu_torch.utils import codec
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
+
+    p = fh.P
+    bad = None
+    while bad is None:
+        x = rng.randrange(p)
+        y = fh.fp_sqrt((x * x % p * x + 4) % p)
+        if y is not None and not fh.g1_in_subgroup((x, y)):
+            bad = (x, y)
+    pts = _curve_points(n, rng)
+    blobs, flags, ys = [], [], []
+    for i, pt in enumerate(pts):
+        kind = (i // 8) % 3 if i % 8 == 3 else None
+        f = 3
+        if kind == 0:
+            b = bytearray(_off_curve_blob(rng))
+            b[0] |= 0x20 if i & 16 else 0
+            blobs.append(bytes(b))
+            flags.append(None)
+            ys.append(None)
+            continue
+        if kind == 1:
+            pt, f = fh.g1_add(bad, pt), 1
+        elif kind == 2:
+            pt, f = (0, 2 if i & 16 else p - 2), 1
+        blobs.append(codec.g1_to_bytes(pt))
+        flags.append(f)
+        ys.append(pt[1])
+    xb = bytearray()
+    for b in blobs:
+        xb += bytes([b[0] & 0x1F]) + b[1:48]
+    wl = [int(b[0] & 0xE0 == 0xA0) for b in blobs]
+    return (torch.frombuffer(xb, dtype=torch.uint8).reshape(n, 48).clone(),
+            torch.tensor(wl, dtype=torch.uint8), flags, ys)
+
+
+def phase_decode(dev: torch.device) -> dict:
+    """decode_points against its plain version on the card, word for word
+    and flag for flag, at DECODE_SIZES; its flags and y against the host;
+    timed by CUDA events and by the profiler at DECODE_TIMED beside the
+    bound of benchmark/core/roofline.py (DECODE_MACS a point); then one
+    batch_decompress of 585 points: one decode_points launch, no other
+    kernel and one device-to-host copy. Runs first: the card's profiler
+    stops reporting kernels after a few thousand in a process."""
+    from benchmark.core import roofline
+    from go_curdleproofs_tpu_torch.ops import codec_batch, kernels
+    from go_curdleproofs_tpu_torch.time_kernels import card_ms
+    from go_curdleproofs_tpu_torch.utils import codec
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = random.Random(1818)
+    res = {}
+    for n in DECODE_SIZES:
+        xb, wl, flags, ys = decode_inputs(n, rng)
+        xb_d, wl_d = xb.to(dev), wl.to(dev)
+        kernels.reset_launches()
+        got = kernels.decode_points(xb_d, wl_d)
+        torch.cuda.synchronize()
+        check(kernels.launches["decode_points"] == 1, "one decode launch")
+        t0 = time.perf_counter()
+        want = kernels.decode_points_plain(xb_d, wl_d)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(got, want),
+              f"decode_points [{n}] word for word against the plain version")
+        host = got.cpu().numpy()
+        for i, (f, y) in enumerate(zip(flags, ys)):
+            check(f is None or int(host[i, 12]) == f,
+                  f"decode_points [{n}] point {i}: flags {host[i, 12]}, "
+                  f"expected {f}")
+            check(f is not None or int(host[i, 12]) & 1 == 0,
+                  f"decode_points [{n}] point {i} is off the curve")
+            check(y is None or int.from_bytes(host[i, :12].tobytes(),
+                                              "little") == y,
+                  f"decode_points [{n}] point {i}: y")
+        line = (f"decode_points [{n}]: exact against the plain version and "
+                f"the host ({sum(f is None for f in flags)} off the curve, "
+                f"{sum(f == 1 for f in flags)} outside the subgroup); plain "
+                f"{plain_ms:.1f} ms")
+        if n in DECODE_TIMED:
+            ms = kernel_ms(lambda: kernels.decode_points(xb_d, wl_d), 10)
+            on_card = card_ms(lambda: kernels.decode_points(xb_d, wl_d),
+                              "decode_points_kernel", 10)
+            bnd = roofline.bound_seconds({"decode": n}) * 1e3
+            macs, nbytes = roofline.work_macs_bytes({"decode": n})
+            by = ("operations" if macs / roofline.PEAK_MACS_PER_S
+                  > nbytes / roofline.PEAK_BYTES_PER_S else "bytes")
+            line += (f"; kernel {ms:.4f} ms (CUDA events), {on_card:.4f} ms "
+                     f"a launch on the card (profiler), bound {bnd:.6f} ms "
+                     f"by {by} ({100 * bnd / on_card:.2f}% of the roofline)")
+            res["decode_points"] = dict(
+                max_abs_err=0, ms=ms, card_ms=on_card, plain_ms=plain_ms,
+                bound_ms=bnd, bound_by=by, shape=[n])
+        print(line, flush=True)
+
+    # the path: one launch, one copy each way, no other kernel
+    pts = _curve_points(585, rng)
+    blobs = [codec.g1_to_bytes(p) for p in pts]
+    check(codec_batch.batch_decompress(blobs, device=dev) == pts,
+          "batch_decompress of 585 points")
+    kernels.reset_launches()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = codec_batch.batch_decompress(blobs, device=dev)
+        torch.cuda.synchronize()
+    check(got == pts, "batch_decompress of 585 points, profiled")
+    counts = {k: v for k, v in kernels.launches.items() if v}
+    check(counts == {"decode_points": 1},
+          f"one decode_points launch a batch_decompress, saw {counts}")
+    device = [e.key for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              for _ in range(e.count)]
+    kernels_seen = [k for k in device
+                    if not k.startswith(("Memcpy", "Memset"))]
+    dtoh = [k for k in device if k.startswith("Memcpy DtoH")]
+    check(len(kernels_seen) == 1 and "decode_points_kernel" in
+          kernels_seen[0] and len(dtoh) == 1,
+          f"batch_decompress on the card: one kernel, one DtoH copy; saw "
+          f"{device}")
+    order3 = codec.g1_to_bytes((0, 2))        # on the curve, order 3
+    off_curve = _off_curve_blob(rng)
+    for batch, err in (
+            (blobs[:3] + [order3, off_curve] + blobs[3:5],
+             "point not on curve"),
+            (blobs[:3] + [order3], "point not in prime-order subgroup")):
+        try:
+            codec_batch.batch_decompress(batch, device=dev)
+            check(False, f"{err} raised")
+        except ValueError as e:
+            check(str(e) == err, f"{err} raised, saw {e}")
+    check(codec_batch.batch_decompress(blobs[:3] + [order3], device=dev,
+                                       subgroup_check=False)
+          == pts[:3] + [(0, 2)], "the order-3 point without the check")
+    print(f"batch_decompress of 585 points on the card: {kernels_seen}, "
+          f"{len(dtoh)} device-to-host copy; the device events {device}",
+          flush=True)
+    return res
+
+
+def _off_curve_blob(rng: random.Random) -> bytes:
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
+
+    while True:
+        x = rng.randrange(fh.P)
+        if fh.fp_sqrt((x * x % fh.P * x + 4) % fh.P) is None:
+            b = bytearray(x.to_bytes(48, "big"))
+            b[0] |= 0x80
+            return bytes(b)
 
 
 def _long_label(n: int) -> bytes:
@@ -1612,7 +1793,7 @@ def check_fr_mul_sizes(dev: torch.device, hist: dict) -> None:
 
 # the kernels of a batch verify, held against their plain versions at the
 # inputs the b32 verify gave them
-BATCH_KERNELS = ("mont_mul", "point_add", "point_double", "pow_fixed",
+BATCH_KERNELS = ("mont_mul", "point_add", "point_double", "decode_points",
                  "windowed_combine", "msm_select_reduce")
 
 
@@ -1719,6 +1900,10 @@ def call_bound(name: str, args, kw) -> dict:
                      * (4 * PRODUCTS_DOUBLE + PRODUCTS_ADD))
     if name == "msm_select_reduce":
         return msm_bound(args[1])
+    if name == "decode_points":
+        from benchmark.core import roofline
+        seconds = roofline.bound_seconds({"decode": args[0].shape[0]})
+        return dict(bound_ms=seconds * 1e3, bound_by="operations")
     if name == "strobe_absorb_stream":
         state, stream, pos, pbs = args[:4]
         final_pb = args[4] if len(args) > 4 else kw.get("final_pb")
@@ -2318,7 +2503,8 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     card = phase_env(dev)
     phase_build()
-    timings = phase_kernels(dev)
+    timings = phase_decode(dev)
+    timings.update(phase_kernels(dev))
     timings.update(phase_kernels_device_prover(dev))
     verify_counts, crs, insts, gv = phase_verifier(dev, card)
     prove_counts, post, proof, host_ms = phase_prover(dev, card, crs, insts,

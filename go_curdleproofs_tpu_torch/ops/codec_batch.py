@@ -1,28 +1,28 @@
 """Batched point decompression and subgroup checking on a device.
 
-The verifier decodes every compressed point of a proof and its trackers in
-one batched program: the sqrt ladder (the `pow_fixed` kernel), on-curve
-validation, lexicographic y selection, and Scott's half-width subgroup test
-[lambda]P == phi(P) (ops/glv.py), then one fetch. Byte semantics match
+The verifier decodes every compressed point of a proof and its trackers,
+and the prover its pre-trackers, in one launch of the `decode_points`
+kernel (ops/kernels.py): the square root of x^3 + 4 with the sign the
+flags ask for, the on-curve flag and Scott's subgroup test [lambda]P ==
+phi(P) (ops/glv.py), then one fetch. Byte semantics match
 `codec.g1_from_bytes`, including its ValueErrors.
 
 A decode is one `decode` span (utils/profiling.py) with the children
-`parse`, `upload`, `recode`, `fetch`, `convert` and `recheck`, and the
-counters `decode.points` (points decoded) and `decode.lanes` (lanes
-launched).
+`parse`, `upload`, `fetch` and `convert`, and the counters
+`decode.points` (points decoded) and `decode.lanes` (point slots the
+kernel launches).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Sequence
 
-import numpy as np
 import torch
 
 from ..utils import field_host as fh
 from ..utils import profiling
 from ..utils.field_host import Affine
-from . import curve, fp, glv
+from . import curve, fp, glv, kernels
 
 _M_MASK = 0b111 << 5
 _M_COMPRESSED_SMALLEST = 0b100 << 5
@@ -47,23 +47,6 @@ def _subgroup_diffs(pv: curve.PointVec):
     return fp.sub(s.x, fp.mul(bx, s.z)), fp.sub(s.y, fp.mul(pv.y, s.z))
 
 
-def _decode_program(xe: torch.Tensor,
-                    want_largest: torch.Tensor) -> Tuple[torch.Tensor,
-                                                         torch.Tensor]:
-    """x coordinates [n] -> (y [n] elements, ok [n] bool): y is the
-    sign-selected square root of x^3 + 4, ok = on-curve and in-subgroup."""
-    device = xe.device
-    rhs = fp.add(fp.mul(fp.mul(xe, xe), xe),
-                 fp.constant(fh.B_COEFF, xe.shape[:-1], device=device))
-    cand = fp.sqrt_candidate(rhs)
-    on_curve = fp.is_zero(fp.sub(fp.mul(cand, cand), rhs))
-    flip = fp.lex_gt_half(cand) != want_largest
-    y = fp.where(flip, fp.neg(cand), cand)
-    one = fp.constant(1, xe.shape[:-1], device=device)
-    d1, d2 = _subgroup_diffs(curve.PointVec(xe, y, one))
-    return y, on_curve & fp.is_zero(d1) & fp.is_zero(d2)
-
-
 def batch_subgroup_check(points: Sequence[Affine], *,
                          device: torch.device) -> bool:
     """All points in the prime-order subgroup? One batched program."""
@@ -83,12 +66,13 @@ def batch_subgroup_check(points: Sequence[Affine], *,
 def batch_decompress(blobs: Sequence[bytes], *, device: torch.device,
                      subgroup_check: bool = True) -> List[Affine]:
     """Decode 48-byte compressed G1 points: host flag and canonicality
-    parsing, then one device program (sqrt + on-curve + y-select +
-    subgroup) and one fetch."""
+    parsing, then one upload of the x bytes, one `decode_points` launch
+    (sqrt + on-curve + y-select + subgroup) and one fetch."""
     results: List[Affine] = [None] * len(blobs)
     idxs: List[int] = []
     xs: List[int] = []
-    wants_largest: List[bool] = []
+    packed = bytearray()          # the x bytes, then a sign byte a point
+    wants_largest = bytearray()
     with profiling.span("parse"):
         for i, b in enumerate(blobs):
             if len(b) < 48:
@@ -107,28 +91,31 @@ def batch_decompress(blobs: Sequence[bytes], *, device: torch.device,
                 raise ValueError("x coordinate not canonical")
             idxs.append(i)
             xs.append(x)
+            packed += xb
             wants_largest.append(meta == _M_COMPRESSED_LARGEST)
     if not xs:
         return results
 
-    n = curve._pad_pow2(len(xs))
-    profiling.count("decode.points", len(xs))
-    profiling.count("decode.lanes", n)
+    n = len(xs)
+    profiling.count("decode.points", n)
+    profiling.count("decode.lanes", kernels.decode_slots(n))
     with profiling.span("upload"):
-        xe = fp.from_ints(xs + [1] * (n - len(xs)), device)  # x=1 pad lanes
-        wl = torch.from_numpy(
-            np.array(wants_largest + [False] * (n - len(xs)))).to(device)
-    y, ok = _decode_program(xe, wl)
-    ys = fp.to_ints(y[: len(xs)])
-    ok = ok[: len(xs)]
+        packed += wants_largest
+        dev = torch.frombuffer(packed, dtype=torch.uint8).to(device)
+    out = kernels.decode_points(dev[:kernels.XBYTES * n].view(n, -1),
+                                dev[kernels.XBYTES * n:])
     with profiling.span("fetch"):
-        ok = ok.cpu()
-    with profiling.span("recheck"):
-        for i, x, yv in zip(idxs, xs, ys):
-            if yv * yv % fh.P != (x * x % fh.P * x + fh.B_COEFF) % fh.P:
-                raise ValueError("point not on curve")
-            results[i] = (x, yv)
-    if subgroup_check and not bool(ok.all()):
-        # on-curve failures raised above; what is left fails the subgroup
+        out = out.cpu()
+    with profiling.span("convert"):
+        words = out.numpy()
+        flags = words[:, fp.NWORDS]
+        raw = words[:, :fp.NWORDS].tobytes()
+        ys = [int.from_bytes(raw[48 * k:48 * k + 48], "little")
+              for k in range(n)]
+    if not (flags & kernels.ON_CURVE).all():
+        raise ValueError("point not on curve")
+    if subgroup_check and not (flags & kernels.IN_SUBGROUP).all():
         raise ValueError("point not in prime-order subgroup")
+    for i, x, y in zip(idxs, xs, ys):
+        results[i] = (x, y)
     return results

@@ -1,7 +1,7 @@
-// The ladder, the two MSM kernels and the fused Horner step, written for
-// Hopper (sm_90a), with a plain C launcher each for ctypes
-// (go_curdleproofs_tpu_torch/ops/kernels.py). The pointwise kernels
-// (multiply, point add, point double) are in pointwise.cu.
+// The ladder, the two MSM kernels, the fused Horner step and the batched
+// point decode, written for Hopper (sm_90a), with a plain C launcher each
+// for ctypes (go_curdleproofs_tpu_torch/ops/kernels.py). The pointwise
+// kernels (multiply, point add, point double) are in pointwise.cu.
 //
 // Every launcher enqueues on the stream it is given, allocates nothing, and
 // returns cudaGetLastError() so that a refused launch reaches the caller.
@@ -24,8 +24,10 @@
 // point operations, each two rounds of independent products: there a group
 // of 8 lanes shares one point operation (point_coop.cuh), which makes an
 // operation 2 products deep and not 12 or 8, and msm_select_reduce splits
-// one job's lanes over several blocks. A product split across lanes and
-// bucket accumulation are left to later work.
+// one job's lanes over several blocks. decode_points runs both: the ladder
+// on one lane of a point's group, then a chain of point operations on the
+// group. A product split across lanes and bucket accumulation are left to
+// later work.
 
 #include <cuda_runtime.h>
 
@@ -74,38 +76,39 @@ constexpr int kPowEntries = 15;
 
 extern __shared__ uint32_t pow_table[];
 
-// Entry k (x^k, k = 1..15) of the calling thread's column of the table.
-__device__ __forceinline__ void pow_store(uint32_t* col, int k, const Fp& v) {
+// Entry k (x^k, k = 1..15) of a column of the table whose neighbouring
+// columns lie `stride` words apart.
+__device__ __forceinline__ void pow_store(uint32_t* col, int stride, int k,
+                                          const Fp& v) {
 #pragma unroll
   for (int j = 0; j < curdle::NW; ++j)
-    col[((k - 1) * curdle::NW + j) * blockDim.x] = v.w[j];
+    col[((k - 1) * curdle::NW + j) * stride] = v.w[j];
 }
 
-__device__ __forceinline__ void pow_load(Fp& v, const uint32_t* col, int k) {
+__device__ __forceinline__ void pow_load(Fp& v, const uint32_t* col,
+                                         int stride, int k) {
 #pragma unroll
   for (int j = 0; j < curdle::NW; ++j)
-    v.w[j] = col[((k - 1) * curdle::NW + j) * blockDim.x];
+    v.w[j] = col[((k - 1) * curdle::NW + j) * stride];
 }
 
-// `top` is the index of the exponent's highest nibble that is not 0.
-__global__ void pow_fixed_kernel(const Fp* __restrict__ x, Fp* __restrict__ out,
-                                 int n, Exponent e, int top) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;  // a thread touches only its own column: no barrier
-  uint32_t* col = pow_table + threadIdx.x;
-  const Fp base = x[i];
-  pow_store(col, 1, base);
+// acc = base^e by the 4-bit window, the powers in the column `col`; `top`
+// is the index of the exponent's highest nibble that is not 0. One thread's
+// chain: it touches only its own column, so it needs no barrier.
+__device__ __forceinline__ void pow_ladder(Fp& acc, const Fp& base,
+                                           uint32_t* col, int stride,
+                                           const Exponent& e, int top) {
+  pow_store(col, stride, 1, base);
 #pragma unroll 1
   for (int k = 1; k < 8; ++k) {
     Fp t;
-    pow_load(t, col, k);
+    pow_load(t, col, stride, k);
     curdle::fp_sqr(t, t);
-    pow_store(col, 2 * k, t);
+    pow_store(col, stride, 2 * k, t);
     curdle::fp_mul(t, t, base);
-    pow_store(col, 2 * k + 1, t);
+    pow_store(col, stride, 2 * k + 1, t);
   }
-  Fp acc;
-  pow_load(acc, col, (e.w[top >> 3] >> ((top & 7) * 4)) & 15u);
+  pow_load(acc, col, stride, (e.w[top >> 3] >> ((top & 7) * 4)) & 15u);
 #pragma unroll 1
   for (int idx = top - 1; idx >= 0; --idx) {
 #pragma unroll 1
@@ -113,10 +116,19 @@ __global__ void pow_fixed_kernel(const Fp* __restrict__ x, Fp* __restrict__ out,
     const int d = (e.w[idx >> 3] >> ((idx & 7) * 4)) & 15u;
     if (d != 0) {
       Fp t;
-      pow_load(t, col, d);
+      pow_load(t, col, stride, d);
       curdle::fp_mul(acc, acc, t);
     }
   }
+}
+
+__global__ void pow_fixed_kernel(const Fp* __restrict__ x, Fp* __restrict__ out,
+                                 int n, Exponent e, int top) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Fp base = x[i];
+  Fp acc;
+  pow_ladder(acc, base, pow_table + threadIdx.x, blockDim.x, e, top);
   out[i] = acc;
 }
 
@@ -374,6 +386,188 @@ point_x16_add_kernel(const Fp* ax, const Fp* ay, const Fp* az,
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// decode_points: the whole batched point decompression of the verifier and
+// the prover. For point i with the big-endian x bytes xb[i] (the three flag
+// bits cleared, x < p, both checked on the host) and the sign wl[i] (1: the
+// lexicographically largest y), out[i] is 13 words: the canonical y,
+// little-endian, then the flags, bit 0 on the curve (x^3 + 4 is a square)
+// and bit 1 in the prime-order subgroup ([lambda]P == phi(P)).
+//
+// Replaces the chain of ~420 launches of plain torch ops and four kernels
+// that did the same (the sqrt ladder, y's sign, a 33-window scalar
+// multiplication by lambda over a padded table): what held that path was
+// the host's enqueue of its launches, not the card. Here a point is
+//   * x into Montgomery form (one product with R^2), rhs = x^3 + 4, the
+//     candidate root rhs^((p+1)/4) by pow_fixed's 4-bit ladder, on_curve =
+//     (cand^2 == rhs), the canonical root (one product with the integer 1)
+//     against (p-1)/2, y = +-cand by the sign; one lane of the point's
+//     group runs this chain, the table of powers in shared memory;
+//   * the subgroup test with lambda = z^2 - 1, z = -kZ: [lambda]P =
+//     [kZ]([kZ]P) - P (the two signs of z cancel), MSB first, 126
+//     doublings and 11 additions, each a complete cooperative operation of
+//     the point's 8-lane group (point_coop.cuh): 2 products deep. Exact for
+//     every input, on the curve or not, so the verdict is the plain
+//     version's, word for word.
+// Bound: operations (~1,800 products a point) on 248-18,720 points, so the
+// depth of one point's chain sets the time: ~480 dependent ladder steps on
+// one lane and 137 operations of 2 products on the group. A block is one
+// warp, four points, so 585 points are 147 warps, about one a scheduler.
+// The ladder lanes of a warp are a quarter of it: the ladder was never
+// issue-bound at these sizes (pow_fixed's note), and a product split across
+// a group's lanes is left to later work.
+
+constexpr int kDecodeThreads = 32;
+constexpr int kDecodePoints = kDecodeThreads / kGroupLanes;
+constexpr int kXBytes = 48;
+constexpr int kDecodeWords = curdle::NW + 1;  // y, then the flags
+constexpr uint64_t kZ = 0xd201000000010000ull;  // z = -kZ, the BLS parameter
+
+// R^2 mod p (x -> x R by one product), 4 and beta in Montgomery form,
+// (p - 1) / 2, and the square-root exponent (p + 1) / 4 with the index of
+// its top nibble (tests/test_torch_kernels.py reads them back).
+__constant__ uint32_t kR2[curdle::NW] = {
+    0x1c341746u, 0xf4df1f34u, 0x09d104f1u, 0x0a76e6a6u, 0x4c95b6d5u, 0x8de5476cu,
+    0x939d83c0u, 0x67eb88a9u, 0xb519952du, 0x9a793e85u, 0x92cae3aau, 0x11988fe5u};
+__constant__ uint32_t kFour[curdle::NW] = {
+    0x000cfff3u, 0xaa270000u, 0xfc34000au, 0x53cc0032u, 0x6b0a807fu, 0x478fe97au,
+    0xe6ba24d7u, 0xb1d37ebeu, 0xbf78ab2fu, 0x8ec9733bu, 0x3d83de7eu, 0x09d64551u};
+__constant__ uint32_t kBeta[curdle::NW] = {
+    0x8671f071u, 0xcd03c9e4u, 0x1fcda5d2u, 0x5dab2246u, 0xd3851b95u, 0x587042afu,
+    0x01bacb9eu, 0x8eb60ebeu, 0x83d050d2u, 0x03f97d6eu, 0x54638741u, 0x18f02065u};
+__constant__ uint32_t kHalfP[curdle::NW] = {
+    0xffffd555u, 0xdcff7fffu, 0x58a9ffffu, 0x0f55ffffu, 0x7b587b12u, 0xb3986950u,
+    0x79c2895fu, 0xb23ba5c2u, 0x21a5d66bu, 0x258dd3dbu, 0x1cbff34du, 0x0d0088f5u};
+__constant__ Exponent kSqrtExponent = {{
+    0xffffeaabu, 0xee7fbfffu, 0xac54ffffu, 0x07aaffffu, 0x3dac3d89u, 0xd9cc34a8u,
+    0x3ce144afu, 0xd91dd2e1u, 0x90d2eb35u, 0x92c6e9edu, 0x8e5ff9a6u, 0x0680447au}};
+constexpr int kSqrtTop = 94;
+
+__device__ __forceinline__ void fp_load(Fp& r, const uint32_t* c) {
+#pragma unroll
+  for (int j = 0; j < curdle::NW; ++j) r.w[j] = c[j];
+}
+
+__device__ __forceinline__ bool fp_equal(const Fp& a, const Fp& b) {
+  uint32_t d = 0;
+#pragma unroll
+  for (int j = 0; j < curdle::NW; ++j) d |= a.w[j] ^ b.w[j];
+  return d == 0;
+}
+
+// a > c as integers, from the top word down.
+__device__ __forceinline__ bool words_greater(const Fp& a, const uint32_t* c) {
+  bool gt = false, decided = false;
+#pragma unroll
+  for (int j = curdle::NW - 1; j >= 0; --j) {
+    gt = decided ? gt : a.w[j] > c[j];
+    decided = decided || a.w[j] != c[j];
+  }
+  return gt;
+}
+
+// m.acc = [kZ] m.acc where m.acc and m.q both hold the point: double and
+// add, MSB first. Called as coop_add.
+__device__ __forceinline__ void coop_mul_z(GroupMem& m, int lane,
+                                           unsigned mask) {
+#pragma unroll 1
+  for (int b = 62; b >= 0; --b) {
+    curdle::coop_double(m, lane, mask);
+    if ((kZ >> b) & 1) curdle::coop_add(m, lane, mask);
+  }
+}
+
+__global__ void __launch_bounds__(kDecodeThreads)
+decode_points_kernel(const uint8_t* __restrict__ xb,
+                     const uint8_t* __restrict__ wl,
+                     int32_t* __restrict__ out, int n) {
+  __shared__ GroupMem mem[kDecodePoints];
+  __shared__ Fp base[kDecodePoints][2];  // x and y of P, Montgomery form
+  __shared__ uint32_t table[kPowEntries * curdle::NW * kDecodePoints];
+  const int lane = threadIdx.x % kGroupLanes;
+  const int group = threadIdx.x / kGroupLanes;
+  const int i = blockIdx.x * kDecodePoints + group;
+  if (i >= n) return;  // a whole group leaves: its lanes are in no mask
+  const unsigned mask = curdle::group_mask();
+  GroupMem& m = mem[group];
+  Fp* pt = base[group];
+  int32_t* o = out + (size_t)i * kDecodeWords;
+
+  bool on_curve = false;
+  if (lane == 0) {
+    Fp x, c;
+    const uint8_t* b = xb + (size_t)i * kXBytes;
+#pragma unroll
+    for (int j = 0; j < curdle::NW; ++j) {
+      const uint8_t* w = b + kXBytes - 4 * (j + 1);
+      x.w[j] = (uint32_t)w[0] << 24 | (uint32_t)w[1] << 16 |
+               (uint32_t)w[2] << 8 | w[3];
+    }
+    fp_load(c, kR2);
+    curdle::fp_mul(x, x, c);
+    Fp rhs, cand;
+    curdle::fp_sqr(rhs, x);
+    curdle::fp_mul(rhs, rhs, x);
+    fp_load(c, kFour);
+    curdle::fp_add(rhs, rhs, c);
+    pow_ladder(cand, rhs, table + group, kDecodePoints, kSqrtExponent,
+               kSqrtTop);
+    curdle::fp_sqr(c, cand);
+    on_curve = fp_equal(c, rhs);
+    curdle::fp_set_zero(c);
+    c.w[0] = 1;
+    curdle::fp_mul(c, cand, c);  // the root's canonical value
+    if (words_greater(c, kHalfP) != (wl[i] != 0)) {
+      curdle::fp_neg(c, c);
+      curdle::fp_neg(cand, cand);
+    }
+#pragma unroll
+    for (int j = 0; j < curdle::NW; ++j) o[j] = (int32_t)c.w[j];
+    pt[0] = x;
+    pt[1] = cand;
+  }
+  __syncwarp(mask);
+
+  // T = [kZ]P, then [kZ]T = [z^2]P, then + (-P): S = [lambda]P
+  if (lane < 3) {
+    Fp v;
+    if (lane == 2) curdle::fp_set_one(v); else v = pt[lane];
+    m.acc[lane] = v;
+    m.q[lane] = v;
+  }
+  __syncwarp(mask);
+  coop_mul_z(m, lane, mask);
+  if (lane < 3) m.q[lane] = m.acc[lane];
+  __syncwarp(mask);
+  coop_mul_z(m, lane, mask);
+  if (lane < 3) {
+    Fp v;
+    if (lane == 2) curdle::fp_set_one(v); else v = pt[lane];
+    if (lane == 1) curdle::fp_neg(v, v);
+    m.q[lane] = v;
+  }
+  __syncwarp(mask);
+  curdle::coop_add(m, lane, mask);
+
+  // S == phi(P) = (beta x, y): X_S == beta x Z_S (lane 0), Y_S == y Z_S
+  // (lane 1)
+  bool equal = true;
+  if (lane < 2) {
+    Fp v = pt[lane];
+    if (lane == 0) {
+      Fp c;
+      fp_load(c, kBeta);
+      curdle::fp_mul(v, v, c);
+    }
+    curdle::fp_mul(v, v, m.acc[2]);
+    equal = fp_equal(v, m.acc[lane]);
+  }
+  const unsigned votes = __ballot_sync(mask, equal) >> (threadIdx.x & 24);
+  if (lane == 0)
+    o[curdle::NW] = (int32_t)(on_curve | ((votes & 3u) == 3u ? 2u : 0u));
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -470,6 +664,16 @@ int curdle_point_x16_add_select(const void* ax, const void* ay, const void* az,
       (const Fp*)ax, (const Fp*)ay, (const Fp*)az, (const Fp*)tx,
       (const Fp*)ty, (const Fp*)tz, digits, n_windows, w, (Fp*)ox, (Fp*)oy,
       (Fp*)oz, n);
+  return (int)cudaGetLastError();
+}
+
+// xb: [n, 48] bytes, wl: [n] bytes, out: [n, 13] words.
+int curdle_decode_points(const void* xb, const void* wl, void* out, int n,
+                         void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const int blocks = (n + kDecodePoints - 1) / kDecodePoints;
+  decode_points_kernel<<<blocks, kDecodeThreads, 0, (cudaStream_t)stream>>>(
+      (const uint8_t*)xb, (const uint8_t*)wl, (int32_t*)out, n);
   return (int)cudaGetLastError();
 }
 

@@ -87,6 +87,11 @@ def from_mont(a: torch.Tensor) -> torch.Tensor:
     return mul(a, _F.one_plain(a.device))
 
 
+def from_mont_plain(a: torch.Tensor) -> torch.Tensor:
+    """`from_mont` in plain products."""
+    return mul_plain(a, _F.one_plain(a.device))
+
+
 def canonical_bytes_be(a: torch.Tensor) -> torch.Tensor:
     """[..., 12] elements -> [..., 48] uint8: the canonical value
     big-endian, as the wire format writes a coordinate."""
@@ -119,7 +124,13 @@ def is_zero(a: torch.Tensor) -> torch.Tensor:
 def lex_gt_half(a: torch.Tensor) -> torch.Tensor:
     """[...] bool: canonical value of a > (p-1)/2 (gnark's
     LexicographicallyLargest; a tie is not largest)."""
+    return canonical_gt_half(from_mont(a))
+
+
+def canonical_gt_half(c: torch.Tensor) -> torch.Tensor:
+    """[...] bool: c > (p-1)/2 for the words of canonical values c (not
+    Montgomery form), in plain ops."""
     half1 = halflimb.const_limbs((1 << R_BITS) - ((P - 1) // 2 + 1),
-                                 _F.nlimbs, a.device)
-    _, ge = halflimb.resolve(halflimb.split(from_mont(a)) + half1)
+                                 _F.nlimbs, c.device)
+    _, ge = halflimb.resolve(halflimb.split(c) + half1)
     return ge.bool()                             # value >= (p-1)/2 + 1

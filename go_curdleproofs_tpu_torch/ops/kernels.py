@@ -2,9 +2,10 @@
 
 Each kernel (CUDA C++ for sm_90a; ops/csrc/pointwise.cu holds mont_mul,
 point_add, point_double, fr_mont_mul and fr_pow_fixed, ops/csrc/kernels.cu
-holds pow_fixed, windowed_combine, msm_select_reduce and point_x16_add;
+holds pow_fixed, windowed_combine, msm_select_reduce, point_x16_add and
+decode_points;
 mont_mul runs on the team product of ops/csrc/fp_team.cuh;
-point_add, point_double and the last three run on the cooperative point
+point_add, point_double and the last four run on the cooperative point
 operations of ops/csrc/point_coop.cuh; ops/csrc/transcript.cu holds
 strobe_absorb_stream and strobe_challenge32; the Fp and Fr arithmetic of
 all of them is ops/csrc/fp_asm.cuh and fr_asm.cuh, written by
@@ -41,8 +42,9 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..utils.field_host import B_COEFF, P
 from ..utils.field_host import R as FR_MODULUS
-from . import curve, fp, fr, halflimb, keccak_dev
+from . import curve, fp, fr, glv, halflimb, keccak_dev
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _CU_SOURCES = ("kernels.cu", "pointwise.cu", "transcript.cu")  # a library each
@@ -58,6 +60,7 @@ KERNEL_SOURCE = {"mont_mul": "pointwise.cu", "point_add": "pointwise.cu",
                  "windowed_combine": "kernels.cu",
                  "msm_select_reduce": "kernels.cu",
                  "point_x16_add": "kernels.cu",
+                 "decode_points": "kernels.cu",
                  "fr_pow_fixed": "pointwise.cu",
                  "fr_mont_mul": "pointwise.cu",
                  "strobe_absorb_stream": "transcript.cu",
@@ -156,7 +159,8 @@ def _load() -> SimpleNamespace:
                 msm_select_reduce=main.curdle_msm_select_reduce,
                 mont_mul=pointwise.curdle_mont_mul,
                 point_add=pointwise.curdle_point_add,
-                point_double=pointwise.curdle_point_double)
+                point_double=pointwise.curdle_point_double,
+                decode_points=main.curdle_decode_points)
             fns.pow_fixed.argtypes = [
                 vp, vp, i32, ctypes.POINTER(ctypes.c_uint32), i32, i32, vp]
             fns.windowed_combine.argtypes = [vp] * 6 + [i32, i32, vp]
@@ -166,6 +170,7 @@ def _load() -> SimpleNamespace:
             fns.point_double.argtypes = [vp] * 6 + [i64, vp]
             fns.point_x16_add.argtypes = [vp] * 9 + [i32, vp]
             fns.point_x16_add_select.argtypes = [vp] * 10 + [i32] * 3 + [vp]
+            fns.decode_points.argtypes = [vp, vp, vp, i32, vp]
             fns.fr_mont_mul.argtypes = [vp, vp, vp, i64, i32, i32, vp]
             fns.fr_pow_fixed.argtypes = [
                 vp, vp, i64, ctypes.POINTER(ctypes.c_uint32), i32, vp]
@@ -558,6 +563,81 @@ def point_x16_add_select(acc: curve.PointVec, table: curve.PointVec,
             acc.x.numel() // fp.NWORDS, n_win, w, _stream(acc.x.device))
     _check(rc, "point_x16_add_select")
     launches["point_x16_add"] += 1
+    return out
+
+
+# -- the batched point decode ----------------------------------------------------
+
+XBYTES = 48                 # a compressed x, big-endian
+DECODE_WORDS = fp.NWORDS + 1  # y, then the flags
+ON_CURVE, IN_SUBGROUP = 1, 2  # the flag bits
+DECODE_BLOCK_POINTS = 4     # one warp of 8-lane groups (decode_points_kernel)
+_Z = 0xD201000000010000     # z = -_Z, the BLS parameter: lambda = z^2 - 1
+_R_MOD_P = (1 << (32 * fp.NWORDS)) % P
+
+
+def decode_slots(n: int) -> int:
+    """Point slots the kernel launches for n points: whole blocks."""
+    return -(-n // DECODE_BLOCK_POINTS) * DECODE_BLOCK_POINTS
+
+
+def _mul_z_plain(p: curve.PointVec) -> curve.PointVec:
+    """[-z]P by double and add, MSB first (63 doublings, 5 additions)."""
+    acc = p
+    for bit in bin(_Z)[3:]:
+        acc = point_double_plain(acc)
+        if bit == "1":
+            acc = point_add_plain(acc, p)
+    return acc
+
+
+def decode_points_plain(xb: torch.Tensor, wl: torch.Tensor) -> torch.Tensor:
+    n, device = xb.shape[0], xb.device
+    x = fp.mul_small_plain(halflimb.bytes_be_to_words(xb), _R_MOD_P)  # x R
+    rhs = fp.add(fp.mul_plain(fp.mul_plain(x, x), x),
+                 fp.constant(B_COEFF, (n,), device=device))
+    cand = fp.pow_fixed_plain(rhs, (P + 1) // 4)
+    on_curve = (fp.mul_plain(cand, cand) == rhs).all(-1)
+    c = fp.from_mont_plain(cand)
+    flip = fp.canonical_gt_half(c) != wl.bool()
+    y_out = fp.where(flip, fp.neg(c), c)
+    y = fp.where(flip, fp.neg(cand), cand)
+    one = fp.constant(1, (n,), device=device)
+    # [lambda]P = [-z]([-z]P) - P against phi(P) = (beta x, y)
+    s = point_add_plain(_mul_z_plain(_mul_z_plain(curve.PointVec(x, y, one))),
+                        curve.PointVec(x, fp.neg(y), one))
+    bx = fp.mul_plain(x, fp.constant(glv.BETA, device=device))
+    in_sub = ((fp.mul_plain(bx, s.z) == s.x).all(-1)
+              & (fp.mul_plain(y, s.z) == s.y).all(-1))
+    flags = (on_curve.to(torch.int32) * ON_CURVE
+             | in_sub.to(torch.int32) * IN_SUBGROUP)
+    return torch.cat([y_out, flags[:, None]], dim=-1)
+
+
+def decode_points(xb: torch.Tensor, wl: torch.Tensor) -> torch.Tensor:
+    """The batched decompression of n G1 points in one launch. xb: [n, 48]
+    uint8, each point's big-endian x with the three flag bits cleared
+    (x < p); wl: [n] uint8, 1 where the point's y is the lexicographically
+    largest root. Returns [n, 13] int32: the canonical y (the root of
+    x^3 + 4 that wl asks for) as 12 little-endian words, then the flags
+    ON_CURVE (x^3 + 4 is a square) and IN_SUBGROUP ([lambda]P == phi(P)),
+    the second meaningful only with the first."""
+    if xb.ndim != 2 or xb.shape[1] != XBYTES:
+        raise ValueError(f"decode_points: x bytes must be [n, {XBYTES}], got "
+                         f"{tuple(xb.shape)}")
+    if wl.shape != xb.shape[:1]:
+        raise ValueError(f"decode_points: signs {tuple(wl.shape)} do not "
+                         f"match {xb.shape[0]} points")
+    if _route(xb, wl, dtype=torch.uint8) == "cpu":
+        return decode_points_plain(xb, wl)
+    n = xb.shape[0]
+    out = torch.empty((n, DECODE_WORDS), dtype=torch.int32, device=xb.device)
+    lib = _load()
+    with torch.cuda.device(xb.device):
+        rc = lib.decode_points(xb.data_ptr(), wl.data_ptr(), out.data_ptr(),
+                               n, _stream(xb.device))
+    _check(rc, "decode_points")
+    launches["decode_points"] += 1
     return out
 
 

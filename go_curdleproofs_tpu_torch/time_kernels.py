@@ -2,9 +2,9 @@
 comparing two checkouts on one card: mont_mul (B1), point_add (B2),
 point_double (B3), point_x16_add (B4, both
 load stages, and the window loop on it), windowed_combine (B5),
-msm_select_reduce (B6), pow_fixed (B7), and the device prover's
-fr_pow_fixed (B8), fr_mont_mul, strobe_absorb_stream and
-strobe_challenge32.
+msm_select_reduce (B6), pow_fixed (B7), the batched point decode
+decode_points, and the device prover's fr_pow_fixed (B8), fr_mont_mul,
+strobe_absorb_stream and strobe_challenge32.
 
     python3 go_curdleproofs_tpu_torch/time_kernels.py [--root CHECKOUT]
                         [--splits] [--threads] [--point-threads]
@@ -236,7 +236,8 @@ def main() -> int:
     if args.mul_team:
         sweep_mul_team(kernels, mul_ops)
 
-    # B7: the decoder's sqrt ladder, the provers' inverse ladders
+    # B7: the sqrt ladder at the old decoder's 1024 lanes, the provers'
+    # inverse ladders
     x = fp.from_ints([rng.randrange(fh.P) for _ in range(1024)], dev)
     for n, e, what in ((1024, (fh.P + 1) // 4, "sqrt"),
                        (256, fh.P - 2, "inverse"), (24, fh.P - 2, "inverse"),
@@ -275,6 +276,22 @@ def main() -> int:
                            5)
             print(f"pow_fixed sqrt [{blocks * 128}] at 128 threads: "
                   f"{blocks} blocks on 132 SMs, {ms:.4f} ms", flush=True)
+
+    # the batched point decode at a prove's, the two verify cells' and a
+    # 32-proof batch's points (any x below p: every x takes the same path)
+    if hasattr(kernels, "decode_points"):
+        for n in (248, 585, 2141, 18720):
+            xb = torch.tensor([list(rng.randrange(fh.P).to_bytes(48, "big"))
+                               for _ in range(n)], dtype=torch.uint8,
+                              device=dev)
+            wl = torch.zeros(n, dtype=torch.uint8, device=dev)
+            ms = kernel_ms(lambda: kernels.decode_points(xb, wl), 5)
+            on_card = card_ms(lambda: kernels.decode_points(xb, wl),
+                              "decode_points_kernel", 5)
+            print(f"decode_points [{n}]: {ms:.4f} ms, on the card "
+                  f"{on_card:.4f} ms a launch", flush=True)
+    else:
+        print("decode_points: not in this checkout")
 
     # B4: the step at the window loop's batches, and the loop itself
     for n in (2, 4, 24):

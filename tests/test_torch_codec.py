@@ -118,3 +118,112 @@ def test_decode_pool_resolves_through_port():
     assert [lp.resolve() for lp in lazy] == pts + [None]
     with pytest.raises(ValueError):
         pool.add(hcodec.g1_to_bytes(_pts(rng, 1)[0]))   # already resolved
+
+
+def _blob_of(pt, largest=None):
+    """The compressed bytes of pt; `largest` forces the sign flag (the
+    other root's bytes when it disagrees with pt's y)."""
+    b = bytearray(hcodec.g1_to_bytes(pt))
+    if largest is not None and pt is not None:
+        b[0] = (b[0] & 0x1F) | (0xA0 if largest else 0x80)
+    return bytes(b)
+
+
+def _both_ways(blobs, **kw):
+    """The port's result or error message, checked equal to the JAX
+    package's and, point by point, to the host codec's."""
+    try:
+        got = codec_batch.batch_decompress(blobs, device=CPU, **kw)
+    except ValueError as e:
+        with pytest.raises(ValueError) as jax_err:
+            jcodec_batch.batch_decompress(blobs, **kw)
+        assert str(e) == str(jax_err.value)
+        return str(e)
+    assert got == jcodec_batch.batch_decompress(blobs, **kw)
+    assert got == [hcodec.g1_from_bytes(b, **kw) for b in blobs]
+    return got
+
+
+@pytest.mark.parametrize("n", [1, 5, 7])
+def test_decompress_any_count_both_signs(n):
+    """No padding to a power of two: 1, 5 and 7 points, each y taken with
+    both sign flags (the two roots of one x)."""
+    rng = np.random.default_rng(20 + n)
+    pts = _pts(rng, n)
+    for largest in (False, True):
+        got = _both_ways([_blob_of(p, largest) for p in pts])
+        assert [g[0] for g in got] == [p[0] for p in pts]
+        assert all(fh.fp_lexicographically_largest(g[1]) == largest
+                   for g in got)
+
+
+def test_decompress_infinity_and_duplicates():
+    rng = np.random.default_rng(31)
+    pts = _pts(rng, 3)
+    blobs = [_blob_of(None), _blob_of(pts[0]), _blob_of(pts[1]),
+             _blob_of(pts[0]), _blob_of(None), _blob_of(pts[2])]
+    assert _both_ways(blobs) == [None, pts[0], pts[1], pts[0], None, pts[2]]
+    assert _both_ways([_blob_of(None)] * 2) == [None, None]
+
+
+@pytest.mark.parametrize("order", ["curve_first", "subgroup_first"])
+def test_off_curve_wins_over_off_subgroup(order):
+    """A batch with a point off the curve and one on the curve outside the
+    subgroup raises the on-curve error, whatever their order, with and
+    without the subgroup check."""
+    rng = np.random.default_rng(41)
+    good = [_blob_of(p) for p in _pts(rng, 3)]
+    off_curve = _off_curve_blob(rng)
+    off_sub = _blob_of(_off_subgroup_point(rng))
+    bad = [off_curve, off_sub] if order == "curve_first" else [off_sub,
+                                                                off_curve]
+    blobs = good[:1] + bad[:1] + good[1:] + bad[1:]
+    assert _both_ways(blobs) == "point not on curve"
+    assert _both_ways(blobs, subgroup_check=False) == "point not on curve"
+
+
+def test_order_three_point_is_outside_the_subgroup():
+    """(0, +-2) is on the curve with order 3: the subgroup test rejects it,
+    and without the check both signs decode."""
+    rng = np.random.default_rng(43)
+    good = [_blob_of(p) for p in _pts(rng, 2)]
+    for y in (2, P - 2):
+        blob = _blob_of((0, y))
+        assert _both_ways(good + [blob]) == \
+            "point not in prime-order subgroup"
+        assert _both_ways(good + [blob], subgroup_check=False)[-1] == (0, y)
+
+
+def test_decode_points_flags_and_words():
+    """The plain route of `decode_points` on a mixed batch: canonical y
+    words and the flags of each kind of point, against the host."""
+    from go_curdleproofs_tpu_torch.ops import kernels
+    rng = np.random.default_rng(47)
+    pts = _pts(rng, 3) + [_off_subgroup_point(rng), (0, 2)]
+    blobs = [_blob_of(p) for p in pts] + [_off_curve_blob(rng)]
+    xb = torch.tensor([[b[0] & 0x1F, *b[1:48]] for b in blobs],
+                      dtype=torch.uint8)
+    wl = torch.tensor([b[0] >> 5 == 0b101 for b in blobs], dtype=torch.uint8)
+    out = kernels.decode_points(xb, wl)
+    assert out.shape == (6, kernels.DECODE_WORDS) and out.dtype == torch.int32
+    words = out.numpy()
+    assert list(words[:, 12]) == [3, 3, 3, 1, 1, 0]
+    for row, p in zip(words, pts):
+        assert int.from_bytes(row[:12].tobytes(), "little") == p[1]
+    assert kernels.decode_slots(6) == 8 and kernels.decode_slots(8) == 8
+
+
+def test_decompress_is_one_wrapper_call(monkeypatch):
+    """One `decode_points` wrapper call a decode, and no other kernel
+    wrapper, whatever the batch."""
+    from go_curdleproofs_tpu_torch.ops import kernels
+    calls = []
+    for name in kernels.KERNEL_NAMES:
+        fn = getattr(kernels, name)
+        monkeypatch.setattr(kernels, name, lambda *a, _n=name, _f=fn, **k:
+                            calls.append(_n) or _f(*a, **k))
+    rng = np.random.default_rng(53)
+    pts = _pts(rng, 5)
+    assert codec_batch.batch_decompress(
+        [_blob_of(p) for p in pts], device=CPU) == pts
+    assert calls == ["decode_points"]

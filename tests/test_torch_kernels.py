@@ -21,7 +21,7 @@ from go_curdleproofs_tpu.ops.field_backend import Fp as JFp
 from go_curdleproofs_tpu.utils import field_host as fh
 from go_curdleproofs_tpu.utils.field_host import P
 from go_curdleproofs_tpu_torch import convert
-from go_curdleproofs_tpu_torch.ops import curve, fp, fr, kernels
+from go_curdleproofs_tpu_torch.ops import curve, fp, fr, glv, kernels
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -194,8 +194,9 @@ def test_plain_versions_call_no_wrapper(monkeypatch):
     state = torch.arange(200, dtype=torch.uint8)
     stream = torch.arange(180, dtype=torch.uint8)
     pbs = torch.tensor([9], dtype=torch.uint8)
+    xb, wl, _, _ = _decode_case(rng, 3)
     assert set(kernels.KERNEL_NAMES) == set(kernels.launches) \
-        and len(kernels.KERNEL_NAMES) == 11
+        and len(kernels.KERNEL_NAMES) == 12
     for name in kernels.KERNEL_NAMES:
         monkeypatch.setattr(kernels, name, boom)
     kernels.mont_mul_plain(x, x)
@@ -212,6 +213,7 @@ def test_plain_versions_call_no_wrapper(monkeypatch):
     kernels.fr_pow_fixed_plain(s, 0b1011)
     kernels.strobe_absorb_stream_plain(state, stream, 20, pbs, final_pb=3)
     kernels.strobe_challenge32_plain(state, b"label", 20, 7)
+    kernels.decode_points_plain(xb, wl)
 
 
 def test_wrappers_check_inputs_and_never_fall_back():
@@ -539,6 +541,125 @@ def test_cuda_constants_match_field():
         == p_words | {pinv}
 
 
+def _decode_case(rng, n):
+    """n points for decode_points: subgroup points of both signs, and at
+    every eighth (from the fourth on) an x off the curve, a point on the
+    curve outside the subgroup (one such point plus a subgroup point) or
+    (0, +-2) (order 3). Returns (x bytes [n, 48] uint8, signs [n] uint8,
+    the flags each point must get or None off the curve, the y of each
+    point on the curve)."""
+    while True:
+        x = int.from_bytes(rng.bytes(48), "little") % P
+        y = fh.fp_sqrt((x * x % P * x + 4) % P)
+        if y is not None and not fh.g1_in_subgroup((x, y)):
+            bad = (x, y)
+            break
+    step = fh.g1_mul(fh.G1_GEN, int.from_bytes(rng.bytes(31), "little"))
+    pt = fh.g1_mul(fh.G1_GEN, int.from_bytes(rng.bytes(31), "little"))
+    rows, signs, flags, ys = [], [], [], []
+    for i in range(n):
+        kind = (i // 8) % 3 if i % 8 == 3 else None
+        cur, f = pt, 3
+        pt = fh.g1_add(pt, step)
+        if kind == 0:
+            while True:
+                x = int.from_bytes(rng.bytes(48), "little") % P
+                if fh.fp_sqrt((x * x % P * x + 4) % P) is None:
+                    break
+            rows.append(x.to_bytes(48, "big"))
+            signs.append(i >> 4 & 1)
+            flags.append(None)
+            ys.append(None)
+            continue
+        if kind == 1:
+            cur, f = fh.g1_add(bad, cur), 1
+        elif kind == 2:
+            cur, f = (0, 2 if i & 16 else P - 2), 1
+        rows.append(cur[0].to_bytes(48, "big"))
+        signs.append(int(fh.fp_lexicographically_largest(cur[1])))
+        flags.append(f)
+        ys.append(cur[1])
+    xb = torch.tensor(np.frombuffer(b"".join(rows), np.uint8).reshape(n, 48))
+    return xb, torch.tensor(signs, dtype=torch.uint8), flags, ys
+
+
+def test_decode_points_plain_matches_jax_decode_program():
+    """decode_points' plain version against the JAX package's decode
+    program on 8 lanes of every kind: the y of each point on the curve,
+    and the JAX verdict (on the curve and in the subgroup) as both flags
+    set; the flags themselves against the host."""
+    from go_curdleproofs_tpu.ops import codec_batch as jcodec_batch
+    from go_curdleproofs_tpu.ops import field_backend as jfield
+    from go_curdleproofs_tpu.ops import glv as jglv
+    rng = np.random.default_rng(61)
+    xb, wl, flags, ys = _decode_case(rng, 28)
+    idx = [0, 3, 11, 19, 20, 27, 4, 1]        # every kind, both signs
+    xb, wl = xb[idx].contiguous(), wl[idx].contiguous()
+    flags, ys = [flags[i] for i in idx], [ys[i] for i in idx]
+    out = kernels.decode_points(xb, wl).numpy()
+    xs = [int.from_bytes(bytes(r.tolist()), "big") for r in xb]
+    y_dig, ok = jcodec_batch._decode_program(
+        jfield.from_ints(xs), jnp.asarray(wl.numpy().astype(bool)),
+        jnp.asarray(jglv.digits_nophi(jglv.LAMBDA, 8)))
+    y_dig, ok = np.asarray(y_dig), np.asarray(ok)
+    for row, f, y, yd, k in zip(out, flags, ys, y_dig, ok):
+        assert f is None and row[12] & 1 == 0 or row[12] == f
+        assert (row[12] == 3) == bool(k)
+        if f is not None:
+            got = int.from_bytes(row[:12].tobytes(), "little")
+            assert got == y == sum(int(v) << (8 * j)
+                                   for j, v in enumerate(yd))
+
+
+def test_decode_points_checks_inputs_and_never_falls_back():
+    xb = torch.zeros(4, 48, dtype=torch.uint8)
+    wl = torch.zeros(4, dtype=torch.uint8)
+    with pytest.raises(ValueError):                         # [4, 47]
+        kernels.decode_points(xb[:, :47].contiguous(), wl)
+    with pytest.raises(ValueError):                         # 3 signs
+        kernels.decode_points(xb, wl[:3])
+    with pytest.raises(TypeError):
+        kernels.decode_points(xb.to(torch.int32), wl)
+    with pytest.raises(TypeError):
+        kernels.decode_points(xb, wl.bool())
+    with pytest.raises(ValueError):                         # a view
+        kernels.decode_points(torch.zeros(8, 48, dtype=torch.uint8)[0::2],
+                              wl)
+    meta = torch.empty((4, 48), dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError):
+        kernels.decode_points(meta, wl.to("meta"))
+    kernels.reset_launches()
+    kernels.decode_points(xb[:1], wl[:1])                   # x = 0
+    assert kernels.launches["decode_points"] == 0
+
+
+def test_decode_constants_match_field():
+    """decode_points_kernel's constants (kernels.cu): R^2 mod p, 4 and beta
+    in Montgomery form, (p - 1) / 2, the square-root exponent and its top
+    nibble, z, and its points a block as the wrapper counts them."""
+    src = (Path(kernels.__file__).parent / "csrc" / "kernels.cu").read_text()
+    R = 1 << 384
+
+    def words(name):
+        body = re.search(name + r" = \{+([^}]*)\}", src).group(1)
+        ws = [int(w.strip().rstrip("u"), 16) for w in body.split(",")]
+        assert len(ws) == 12
+        return sum(w << (32 * i) for i, w in enumerate(ws))
+
+    assert words(r"kR2\[curdle::NW\]") == R * R % P
+    assert words(r"kFour\[curdle::NW\]") == 4 * R % P
+    assert words(r"kBeta\[curdle::NW\]") == glv.BETA * R % P
+    assert words(r"kHalfP\[curdle::NW\]") == (P - 1) // 2
+    e = words(r"Exponent kSqrtExponent")
+    assert e == (P + 1) // 4
+    top = int(re.search(r"kSqrtTop = (\d+);", src).group(1))
+    assert top == (e.bit_length() - 1) // 4
+    z = int(re.search(r"kZ = (0x[0-9a-f]+)ull;", src).group(1), 16)
+    assert z == kernels._Z and z * z - 1 == glv.LAMBDA
+    threads = int(re.search(r"kDecodeThreads = (\d+);", src).group(1))
+    assert threads // 8 == kernels.DECODE_BLOCK_POINTS
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -825,3 +946,45 @@ def test_cuda_point_x16_add_select_and_steps(cuda_device):
     assert kernels.launches["point_x16_add"] == W
     assert curve.to_affine_host(steps) == curve.to_affine_host(
         curve.scalar_mul_device(pv, dig))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 17, 585, 2141, 18720])
+def test_cuda_decode_points_matches_plain(cuda_device, n):
+    """decode_points on the card against its plain version on the card,
+    word for word and flag for flag, at one point, a ragged 17, the two
+    verify cells' decodes and a 32-proof batch's; the flags and y against
+    the host."""
+    rng = np.random.default_rng(n)
+    xb, wl, flags, ys = _decode_case(rng, n)
+    xb, wl = xb.to(cuda_device), wl.to(cuda_device)
+    got = kernels.decode_points(xb, wl)
+    assert torch.equal(got, kernels.decode_points_plain(xb, wl))
+    host = got.cpu().numpy()
+    for row, f, y in zip(host, flags, ys):
+        assert f is None and row[12] & 1 == 0 or row[12] == f
+        assert y is None or int.from_bytes(row[:12].tobytes(), "little") == y
+
+
+@pytest.mark.cuda
+def test_cuda_batch_decompress_is_one_launch(cuda_device):
+    """One batch_decompress on the card: one decode_points launch and no
+    other kernel launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from go_curdleproofs_tpu.utils import codec as hcodec
+    from go_curdleproofs_tpu_torch.ops import codec_batch
+    pts = _rand_points(np.random.default_rng(71), 40)
+    blobs = [hcodec.g1_to_bytes(p) for p in pts]
+    assert codec_batch.batch_decompress(blobs, device=cuda_device) == pts
+    kernels.reset_launches()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        assert codec_batch.batch_decompress(blobs, device=cuda_device) == pts
+        torch.cuda.synchronize()
+    assert {k: v for k, v in kernels.launches.items() if v} == {
+        "decode_points": 1}
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             for _ in range(e.count)]
+    launched = [k for k in names if not k.startswith(("Memcpy", "Memset"))]
+    assert len(launched) == 1 and "decode_points_kernel" in launched[0]

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from go_curdleproofs_tpu_torch.models import curdleproof, whisk
-from go_curdleproofs_tpu_torch.ops import codec_batch, curve
+from go_curdleproofs_tpu_torch.ops import codec_batch, curve, kernels
 from go_curdleproofs_tpu_torch.utils import field_host as fh
 from go_curdleproofs_tpu_torch.utils import profiling
 from go_curdleproofs_tpu_torch.utils.rand import Rand
@@ -245,20 +245,24 @@ def test_a_whisk_verify_is_one_request_with_its_layers(spans, monkeypatch):
             "convert", "curdleproof.verify", "same_permutation.verify",
             "grand_product.verify", "inner_product.verify",
             "same_scalar.verify", "same_multiscalar.verify", "accumulate",
-            "final_msm", "deserialize", "parse", "recheck"} <= names
-    # the decode's two fetches and the final MSM's one
-    assert sum(r.name == "fetch" for r in recs) == 3
+            "final_msm", "deserialize", "parse"} <= names
+    # the decode's one fetch (y and flags together) and the final MSM's one
+    assert sum(r.name == "fetch" for r in recs) == 2
+    decode = next(r for r in recs if r.name == "decode")
+    assert sorted(r.name for r in recs if r.parent == decode.id) == [
+        "convert", "fetch", "parse", "upload"]
     counts = {}
     for r in recs:
         for k, v in (r.counts or {}).items():
             counts[k] = counts.get(k, 0) + v
-    # every tracker blob (distinct) and every proof point, one lane each,
-    # padded to a power of two
+    # every tracker blob (distinct) and every proof point, one slot each,
+    # in whole blocks of the decode kernel
     trackers = {b for t in pre + post for b in (t.r_g, t.k_r_g)}
     points = len(trackers) + _proof_points(ell)
     assert len(seen["blobs"]) == points
     assert counts["decode.points"] == points
-    assert counts["decode.lanes"] == curve._pad_pow2(points)
+    assert counts["decode.lanes"] == kernels.decode_slots(points)
+    assert counts["decode.lanes"] - points < kernels.DECODE_BLOCK_POINTS
     width, static, dyn_points, dyn_scalars = seen["msm"]
     assert counts["msm.lanes"] == width + curve._pad_pow2(len(dyn_points))
     assert counts["msm.terms"] == sum(s % fh.R != 0
