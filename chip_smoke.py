@@ -277,12 +277,13 @@ _BATCH_FEW = dict(mont_mul=1, point_add=2, point_double=1, pow_fixed=0,
                   strobe_challenge32=0, decode_points=1)
 BATCH_LAUNCHES = {2: _BATCH_FEW, 8: _BATCH_FEW,
                   32: dict(_BATCH_FEW, point_add=4)}
-# spans of a device prove with the spans on (profiling.enable(); the middle
-# six inside the chain, which runs under sync-debug "error")
-DEVICE_PROVE_SPANS = ("dpf.host.step1", "dpf.host.draws", "dpf.upload",
-                      "dpf.sameperm_gpa", "dpf.blinders", "dpf.ipa",
-                      "dpf.step3_sigma", "dpf.samemsm", "dpf.finalize",
-                      "dpf.finalize.enqueue_wait")
+# spans of a device prove with the spans on (profiling.enable(); `chain`
+# and the eight spans after it inside the chain, which runs under
+# sync-debug "error")
+DEVICE_PROVE_SPANS = ("device_prove", "draws", "upload", "chain",
+                      "sameperm_gpa", "blinders", "ipa", "ipa_round",
+                      "step3_sigma", "samemsm", "samemsm_round", "finalize",
+                      "fetch", "assemble")
 DEVICE_PROVE_LAUNCHES = {"fr_pow_fixed": 17, "fr_mont_mul": 157,
                          "point_x16_add": 363,
                          "strobe_absorb_stream": 28,
@@ -1719,6 +1720,13 @@ def phase_device_prover(dev: torch.device, card: str, crs, insts, gv,
         spans = profiling.totals()
         check(set(DEVICE_PROVE_SPANS) <= set(spans),
               f"the device prove's spans, saw {sorted(spans)}")
+        # every launch of the device-only kernels is inside the chain, and
+        # the shuffle's are outside it
+        in_chain = [r.counts["chain.kernels"] for r in profiling.records()
+                    if r.name == "chain"]
+        check(len(in_chain) == 1 and sum(DEVICE_PROVE_LAUNCHES.values())
+              <= in_chain[0] < sum(counts.values()),
+              f"chain.kernels {in_chain} of {sum(counts.values())} launches")
         print("spans of the device prove (profiling.enable(), host clock):")
         print(profiling.report())
         profiling.reset()

@@ -10,12 +10,12 @@ trip.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import Callable, List, Sequence
 
 import numpy as np
 import torch
 
-from ..ops import compress_dev, fp, fr, glv_dev, strobe_dev
+from ..ops import compress_dev, fp, fr, glv_dev, kernels, strobe_dev
 from ..ops.curve import PointVec
 from ..utils import codec
 from ..utils import field_host as fh
@@ -145,6 +145,24 @@ def points_equal(p: PointVec, q: PointVec) -> torch.Tensor:
     d1 = fp.sub(fp.mul(p.x, q.z), fp.mul(q.x, p.z))
     d2 = fp.sub(fp.mul(p.y, q.z), fp.mul(q.y, p.z))
     return fp.is_zero(d1) & fp.is_zero(d2)
+
+
+def kernel_launches() -> int:
+    """Hand-written kernel launches in this process so far (the counters of
+    ops/kernels.py)."""
+    return sum(kernels.launches.values())
+
+
+def enqueue(chain: Callable, *args):
+    """chain(*args), the host's enqueue of a prover's device chain, in a
+    `chain` span. While spans record, the span's counter `chain.kernels` is
+    the number of hand-written kernel launches enqueued inside it."""
+    with profiling.span("chain") as sp:
+        before = kernel_launches() if sp else 0
+        out = chain(*args)
+        if sp:
+            profiling.count("chain.kernels", kernel_launches() - before)
+    return out
 
 
 def fetch(tensors: Sequence[torch.Tensor]) -> List[np.ndarray]:

@@ -44,11 +44,11 @@ from .device_common import (LABEL_ALPHA, LABEL_BETA, LABEL_GAMMA, LABEL_LOOP,
                             LABEL_STEP1, SM_LABEL_ALPHA, SM_LABEL_GAMMA,
                             SM_LABEL_LOOP, SM_LABEL_STEP1,
                             append_points_dev, append_scalars_dev,
-                            challenge_fr, challenge_to_fr, fetch, fr_bytes_be,
-                            fr_const, fr_digits, fr_scalar, lane_index,
-                            masked_inner, point_at, point_rows, roll_fr,
-                            scalar_of, stack_points, sync_host_transcript,
-                            transcript_to_device)
+                            challenge_fr, challenge_to_fr, enqueue, fetch,
+                            fr_bytes_be, fr_const, fr_digits, fr_scalar,
+                            lane_index, masked_inner, point_at, point_rows,
+                            roll_fr, scalar_of, stack_points,
+                            sync_host_transcript, transcript_to_device)
 
 
 def _fold_bit(n: int, blog: int, device: torch.device) -> torch.Tensor:
@@ -163,13 +163,14 @@ def run_ipa_rounds(ts: strobe_dev.TState, table: PointVec,
     for r in range(n.bit_length() - 1):
         half = n >> (r + 1)
         blog = n.bit_length() - 2 - r
-        lr_pts = _ipa_round_cross(table, rows, hcur, Wg, Wgp, csd, dsd,
-                                  half, blog)
-        blobs, gamma = _round_absorb(ts, lr_pts, LABEL_LOOP, LABEL_GAMMA)
-        lr_blobs.append(blobs)
-        gammas.append(gamma)
-        Wg, Wgp, csd, dsd = _ipa_round_update(
-            Wg, Wgp, csd, dsd, gamma, _gamma_inv(gamma), half, blog)
+        with profiling.span("ipa_round"):
+            lr_pts = _ipa_round_cross(table, rows, hcur, Wg, Wgp, csd, dsd,
+                                      half, blog)
+            blobs, gamma = _round_absorb(ts, lr_pts, LABEL_LOOP, LABEL_GAMMA)
+            lr_blobs.append(blobs)
+            gammas.append(gamma)
+            Wg, Wgp, csd, dsd = _ipa_round_update(
+                Wg, Wgp, csd, dsd, gamma, _gamma_inv(gamma), half, blog)
     return lr_blobs, gammas, csd, dsd
 
 
@@ -193,7 +194,7 @@ def prove_ipa_on_device(crs_gs: List[Affine], crs_gs_prime: List[Affine],
     rounds = n.bit_length() - 1
     rs_c, rs_d = inner_product.generate_ipa_blinders(rand, cs, ds)
 
-    with profiling.span("dp2.ipa.setup"):
+    with profiling.span("upload"):
         if stacked is None:
             stacked = curve.StackedVec.from_affine([crs_gs, crs_gs_prime],
                                                    device=device, pad_to=n)
@@ -209,29 +210,30 @@ def prove_ipa_on_device(crs_gs: List[Affine], crs_gs_prime: List[Affine],
         ts = transcript_to_device(transcript, device)
         CD = curve.from_affine_host([C, D], device=device)
         hpt = curve.from_affine_host([crs_h], device=device)
+        rs_cv, rs_dv, cs_v, ds_v = (fr_const(v, device)
+                                    for v in (rs_c, rs_d, cs, ds))
+        zv = fr_scalar(z, device)
 
-        bcd, hcur, csd, dsd = _ipa_setup(
-            table, rows, Wg0, Wgp0, fr_const(rs_c, device),
-            fr_const(rs_d, device), ts, CD, fr_scalar(z, device),
-            fr_const(cs, device), fr_const(ds, device), hpt)
-    with profiling.span("dp2.ipa.rounds"):
+    def chain():
+        bcd, hcur, csd, dsd = _ipa_setup(table, rows, Wg0, Wgp0, rs_cv,
+                                         rs_dv, ts, CD, zv, cs_v, ds_v, hpt)
         lr_blobs, _gammas, csd, dsd = run_ipa_rounds(
             ts, table, rows, hcur, Wg0, Wgp0, csd, dsd, n)
+        return ([compress_dev.compress_xy(bcd), fr_bytes_be(csd[:1]),
+                 fr_bytes_be(dsd[:1]), ts.st] + lr_blobs)
 
-    with profiling.span("dp2.ipa.fetch"):
-        b_cd_h, c0h, d0h, sstate, *lr_h = fetch(
-            [compress_dev.compress_xy(bcd), fr_bytes_be(csd[:1]),
-             fr_bytes_be(dsd[:1]), ts.st] + lr_blobs)
+    b_cd_h, c0h, d0h, sstate, *lr_h = fetch(enqueue(chain))
 
-    pt = compress_dev.decode_xy_host
-    proof = inner_product.Proof(
-        b_c=pt(b_cd_h[0]), b_d=pt(b_cd_h[1]),
-        l_cs=[pt(lr_h[r][0]) for r in range(rounds)],
-        r_cs=[pt(lr_h[r][2]) for r in range(rounds)],
-        l_ds=[pt(lr_h[r][1]) for r in range(rounds)],
-        r_ds=[pt(lr_h[r][3]) for r in range(rounds)],
-        c0=scalar_of(c0h[0]), d0=scalar_of(d0h[0]))
-    sync_host_transcript(transcript, sstate, ts.pos, ts.pos_begin)
+    with profiling.span("assemble"):
+        pt = compress_dev.decode_xy_host
+        proof = inner_product.Proof(
+            b_c=pt(b_cd_h[0]), b_d=pt(b_cd_h[1]),
+            l_cs=[pt(lr_h[r][0]) for r in range(rounds)],
+            r_cs=[pt(lr_h[r][2]) for r in range(rounds)],
+            l_ds=[pt(lr_h[r][1]) for r in range(rounds)],
+            r_ds=[pt(lr_h[r][3]) for r in range(rounds)],
+            c0=scalar_of(c0h[0]), d0=scalar_of(d0h[0]))
+        sync_host_transcript(transcript, sstate, ts.pos, ts.pos_begin)
     return proof
 
 
@@ -283,12 +285,14 @@ def run_sm_rounds(ts: strobe_dev.TState, table: PointVec, xd, n: int):
     for r in range(n.bit_length() - 1):
         half = n >> (r + 1)
         blog = n.bit_length() - 2 - r
-        lr_pts = _sm_round_cross(table, W, xd, half, blog)
-        blobs, gamma = _round_absorb(ts, lr_pts, SM_LABEL_LOOP,
-                                     SM_LABEL_GAMMA)
-        lr_blobs.append(blobs)
-        gammas.append(gamma)
-        W, xd = _sm_round_update(W, xd, gamma, _gamma_inv(gamma), half, blog)
+        with profiling.span("samemsm_round"):
+            lr_pts = _sm_round_cross(table, W, xd, half, blog)
+            blobs, gamma = _round_absorb(ts, lr_pts, SM_LABEL_LOOP,
+                                         SM_LABEL_GAMMA)
+            lr_blobs.append(blobs)
+            gammas.append(gamma)
+            W, xd = _sm_round_update(W, xd, gamma, _gamma_inv(gamma), half,
+                                     blog)
     return lr_blobs, gammas, xd
 
 
@@ -302,33 +306,33 @@ def prove_samemsm_on_device(G: List[Affine], A: Affine, Z_t: Affine,
     n = len(x)
     rounds = n.bit_length() - 1
     r = rand.get_frs(n)
-    with profiling.span("dp2.sm.setup"):
+    with profiling.span("upload"):
         table = curve.StackedVec.from_affine([G, T, U], device=device,
                                              pad_to=n).table()
         azz = curve.from_affine_host([A, Z_t, Z_u], device=device)
         tu_bytes = strobe_dev.bytes_tensor(point_rows(list(T) + list(U)),
                                            device)
         ts = transcript_to_device(transcript, device)
+        r_dev, x_dev = fr_const(r, device), fr_const(x, device)
 
-        b_atu, xd = _sm_setup(table, fr_const(r, device), ts, azz, tu_bytes,
-                              fr_const(x, device))
-    with profiling.span("dp2.sm.rounds"):
-        lr_blobs, _gammas, xd = run_sm_rounds(ts, table, xd, n)
+    def chain():
+        b_atu, xs = _sm_setup(table, r_dev, ts, azz, tu_bytes, x_dev)
+        lr_blobs, _gammas, xs = run_sm_rounds(ts, table, xs, n)
+        return ([compress_dev.compress_xy(b_atu), fr_bytes_be(xs[:1]), ts.st]
+                + lr_blobs)
 
-    with profiling.span("dp2.sm.fetch"):
-        b_h, x0h, sstate, *lr_h = fetch(
-            [compress_dev.compress_xy(b_atu), fr_bytes_be(xd[:1]), ts.st]
-            + lr_blobs)
+    b_h, x0h, sstate, *lr_h = fetch(enqueue(chain))
 
-    pt = compress_dev.decode_xy_host
-    proof = same_multiscalar.Proof(
-        b_a=pt(b_h[0]), b_t=pt(b_h[1]), b_u=pt(b_h[2]),
-        l_a=[pt(lr_h[rd][0]) for rd in range(rounds)],
-        l_t=[pt(lr_h[rd][1]) for rd in range(rounds)],
-        l_u=[pt(lr_h[rd][2]) for rd in range(rounds)],
-        r_a=[pt(lr_h[rd][3]) for rd in range(rounds)],
-        r_t=[pt(lr_h[rd][4]) for rd in range(rounds)],
-        r_u=[pt(lr_h[rd][5]) for rd in range(rounds)],
-        x=scalar_of(x0h[0]))
-    sync_host_transcript(transcript, sstate, ts.pos, ts.pos_begin)
+    with profiling.span("assemble"):
+        pt = compress_dev.decode_xy_host
+        proof = same_multiscalar.Proof(
+            b_a=pt(b_h[0]), b_t=pt(b_h[1]), b_u=pt(b_h[2]),
+            l_a=[pt(lr_h[rd][0]) for rd in range(rounds)],
+            l_t=[pt(lr_h[rd][1]) for rd in range(rounds)],
+            l_u=[pt(lr_h[rd][2]) for rd in range(rounds)],
+            r_a=[pt(lr_h[rd][3]) for rd in range(rounds)],
+            r_t=[pt(lr_h[rd][4]) for rd in range(rounds)],
+            r_u=[pt(lr_h[rd][5]) for rd in range(rounds)],
+            x=scalar_of(x0h[0]))
+        sync_host_transcript(transcript, sstate, ts.pos, ts.pos_begin)
     return proof

@@ -45,8 +45,8 @@ from ..utils.rand import Rand
 from ..utils.transcript import Transcript
 from . import device_prover2 as dp2
 from .device_common import (append_points_dev, append_scalars_dev,
-                            challenge_fr, fetch, fr_bytes_be, fr_const,
-                            fr_digits, lane_index, point_at,
+                            challenge_fr, enqueue, fetch, fr_bytes_be,
+                            fr_const, fr_digits, lane_index, point_at,
                             point_rows, points_equal, scalar_of, scalar_rows,
                             stack_points, sync_host_transcript, take_points,
                             transcript_to_device)
@@ -354,7 +354,7 @@ def _chain(inp: _Inputs) -> List[torch.Tensor]:
     ell, ts, table, f = inp.ell, inp.ts, inp.table, inp.scalars
     n = ell + N_BLINDERS
 
-    with profiling.span("dpf.sameperm_gpa"):
+    with profiling.span("sameperm_gpa"):
         A, B, bs, p, rs_b = _piece_sameperm(
             ts, table, inp.digA, inp.m_bytes, inp.as_rows, f["perm"],
             f["perm_as"], f["rs_m"], f["rs_ap"], inp.M_gsum, ell)
@@ -365,7 +365,7 @@ def _chain(inp: _Inputs) -> List[torch.Tensor]:
             table, B, C, inp.Gsum_Hsum, bs, cs_full, r_b_plus_alpha, r_p, p,
             gp_alpha, gp_beta, binv, ell)
 
-    with profiling.span("dpf.blinders"):
+    with profiling.span("blinders"):
         rs_v, zs_pad = f["rs_v"], f["zs_pad"]
         omega, c_pen = _piece_blind1(rs_v, zs_pad, cs_full, ds_full)
         inv_c = dp2._gamma_inv(c_pen)
@@ -376,7 +376,7 @@ def _chain(inp: _Inputs) -> List[torch.Tensor]:
             ds_full, cs_full)
 
     # inner-product argument over the one row [Gs|Hs], Gs' lazy by diag
-    with profiling.span("dpf.ipa"):
+    with profiling.span("ipa"):
         rows0 = (0, 0, 0, 0)
         bcd, hcur, csd, dsd = dp2._ipa_setup(
             table, rows0, f["ones"], diag, rs_v, rs_d, ts, CD, z, cs_full,
@@ -385,19 +385,19 @@ def _chain(inp: _Inputs) -> List[torch.Tensor]:
             ts, table, rows0, hcur, f["ones"], diag, csd, dsd, n)
 
     # step 3 and the sigma protocol: R = <as, Rs>, S = <as, Ss>
-    with profiling.span("dpf.step3_sigma"):
+    with profiling.span("step3_sigma"):
         RS = curve.msm_rows_points_from_table(inp.table_rs, inp.dig_rs,
                                               (0, 1))
         cm_pts, azz, z_kzu = _piece_sigma(
             ts, RS, A, inp.base_pts, inp.dig12, f["k"], f["r_t"], f["r_u"],
             f["r_a"], f["r_b"], f["r_k"])
 
-    with profiling.span("dpf.samemsm"):
+    with profiling.span("samemsm"):
         b_atu, xd = dp2._sm_setup(inp.table_sm, f["r_sm"], ts, azz,
                                   inp.tu_bytes, f["x"])
         sm_blobs, sm_gammas, xd = dp2.run_sm_rounds(ts, inp.table_sm, xd, n)
 
-    with profiling.span("dpf.finalize"):
+    with profiling.span("finalize"):
         rows, sc_be, sane = _piece_finalize(
             (A, B, C, RS, cm_pts, bcd, b_atu), (r_p, z_kzu),
             ipa_gammas + sm_gammas + [gp_beta],
@@ -407,6 +407,7 @@ def _chain(inp: _Inputs) -> List[torch.Tensor]:
                 + ipa_blobs + sm_blobs)
 
 
+@profiling.traced("device_prove")
 def prove_on_device(crs, Rs: List[Affine], Ss: List[Affine],
                     Ts: List[Affine], Us: List[Affine], M: Affine,
                     perm: Sequence[int], k: int, rs_m: List[int],
@@ -427,17 +428,15 @@ def prove_on_device(crs, Rs: List[Affine], Ss: List[Affine],
     # reference's order (curdleproof.go:60, grandproductargument.go:66,
     # innerproductargument.go:304-305, curdleproof.go:104-106,
     # samescalarargument.go:39-41, samemultiscalarargument.go:55)
-    with profiling.span("dpf.host.step1"):
-        transcript = Transcript(curdleproof.LABEL_TRANSCRIPT)
-        transcript.append_points(curdleproof.LABEL_STEP1, *Rs)
-        transcript.append_points(curdleproof.LABEL_STEP1, *Ss)
-        transcript.append_points(curdleproof.LABEL_STEP1, *Ts)
-        transcript.append_points(curdleproof.LABEL_STEP1, *Us)
-        transcript.append_points(curdleproof.LABEL_STEP1, M)
-        as_ = transcript.get_and_append_challenges(curdleproof.LABEL_VEC_A,
-                                                   ell)
+    transcript = Transcript(curdleproof.LABEL_TRANSCRIPT)
+    transcript.append_points(curdleproof.LABEL_STEP1, *Rs)
+    transcript.append_points(curdleproof.LABEL_STEP1, *Ss)
+    transcript.append_points(curdleproof.LABEL_STEP1, *Ts)
+    transcript.append_points(curdleproof.LABEL_STEP1, *Us)
+    transcript.append_points(curdleproof.LABEL_STEP1, M)
+    as_ = transcript.get_and_append_challenges(curdleproof.LABEL_VEC_A, ell)
 
-    with profiling.span("dpf.host.draws"):
+    with profiling.span("draws"):
         draws = dict(rs_a=rand.get_frs(N_BLINDERS - 2),
                      r_cs=rand.get_frs(N_BLINDERS),
                      rs_blind=rand.get_frs(n), zs_blind=rand.get_frs(n - 2))
@@ -445,53 +444,54 @@ def prove_on_device(crs, Rs: List[Affine], Ss: List[Affine],
             draws[name] = rand.get_fr()
         draws["r_sm"] = rand.get_frs(n)
 
-    with profiling.span("dpf.upload"):
+    with profiling.span("upload"):
         inp = _upload(crs, Rs, Ss, Ts, Us, M, perm, k, rs_m, draws, as_,
                       transcript, device)
-    out = _chain(inp)
-    with profiling.span("dpf.finalize.enqueue_wait"):
-        rows_h, sc_h, sane_h, c0h, d0h, x0h, sstate, *blobs_h = fetch(out)
-    ipa_h, sm_h = blobs_h[:rounds], blobs_h[rounds:]
+    rows_h, sc_h, sane_h, c0h, d0h, x0h, sstate, *blobs_h = fetch(
+        enqueue(_chain, inp))
 
     if not bool(sane_h[0]):
         raise ValueError(
             "device prover sanity check failed (degenerate challenge or "
             "prover self-check mismatch)")
 
-    pt = compress_dev.decode_xy_host
-    A_h, B_h, C_h, R_h, S_h = (pt(rows_h[i]) for i in range(5))
-    cm = rows_h[5:13]
-    bc_h, bd_h = pt(rows_h[13]), pt(rows_h[14])
-    ba_h, bt_h, bu_h = (pt(rows_h[i]) for i in (15, 16, 17))
-    r_p_h, z_k_h, z_t_h, z_u_h = (scalar_of(sc_h[i]) for i in range(4))
+    with profiling.span("assemble"):
+        pt = compress_dev.decode_xy_host
+        A_h, B_h, C_h, R_h, S_h = (pt(rows_h[i]) for i in range(5))
+        cm = rows_h[5:13]
+        bc_h, bd_h = pt(rows_h[13]), pt(rows_h[14])
+        ba_h, bt_h, bu_h = (pt(rows_h[i]) for i in (15, 16, 17))
+        r_p_h, z_k_h, z_t_h, z_u_h = (scalar_of(sc_h[i]) for i in range(4))
 
-    ipa_proof = inner_product.Proof(
-        b_c=bc_h, b_d=bd_h,
-        l_cs=[pt(ipa_h[r][0]) for r in range(rounds)],
-        r_cs=[pt(ipa_h[r][2]) for r in range(rounds)],
-        l_ds=[pt(ipa_h[r][1]) for r in range(rounds)],
-        r_ds=[pt(ipa_h[r][3]) for r in range(rounds)],
-        c0=scalar_of(c0h[0]), d0=scalar_of(d0h[0]))
-    gpa_proof = grand_product.Proof(C_h, r_p_h, ipa_proof)
-    sp_proof = same_permutation.Proof(B_h, gpa_proof)
+        ipa_h, sm_h = blobs_h[:rounds], blobs_h[rounds:]
+        ipa_proof = inner_product.Proof(
+            b_c=bc_h, b_d=bd_h,
+            l_cs=[pt(ipa_h[r][0]) for r in range(rounds)],
+            r_cs=[pt(ipa_h[r][2]) for r in range(rounds)],
+            l_ds=[pt(ipa_h[r][1]) for r in range(rounds)],
+            r_ds=[pt(ipa_h[r][3]) for r in range(rounds)],
+            c0=scalar_of(c0h[0]), d0=scalar_of(d0h[0]))
+        gpa_proof = grand_product.Proof(C_h, r_p_h, ipa_proof)
+        sp_proof = same_permutation.Proof(B_h, gpa_proof)
 
-    cm_t = group_commitment.GroupCommitment(pt(cm[0]), pt(cm[1]))
-    cm_u = group_commitment.GroupCommitment(pt(cm[2]), pt(cm[3]))
-    ss_proof = same_scalar.Proof(
-        group_commitment.GroupCommitment(pt(cm[4]), pt(cm[5])),
-        group_commitment.GroupCommitment(pt(cm[6]), pt(cm[7])),
-        z_k_h, z_t_h, z_u_h)
+        cm_t = group_commitment.GroupCommitment(pt(cm[0]), pt(cm[1]))
+        cm_u = group_commitment.GroupCommitment(pt(cm[2]), pt(cm[3]))
+        ss_proof = same_scalar.Proof(
+            group_commitment.GroupCommitment(pt(cm[4]), pt(cm[5])),
+            group_commitment.GroupCommitment(pt(cm[6]), pt(cm[7])),
+            z_k_h, z_t_h, z_u_h)
 
-    sm_proof = same_multiscalar.Proof(
-        b_a=ba_h, b_t=bt_h, b_u=bu_h,
-        l_a=[pt(sm_h[r][0]) for r in range(rounds)],
-        l_t=[pt(sm_h[r][1]) for r in range(rounds)],
-        l_u=[pt(sm_h[r][2]) for r in range(rounds)],
-        r_a=[pt(sm_h[r][3]) for r in range(rounds)],
-        r_t=[pt(sm_h[r][4]) for r in range(rounds)],
-        r_u=[pt(sm_h[r][5]) for r in range(rounds)],
-        x=scalar_of(x0h[0]))
+        sm_proof = same_multiscalar.Proof(
+            b_a=ba_h, b_t=bt_h, b_u=bu_h,
+            l_a=[pt(sm_h[r][0]) for r in range(rounds)],
+            l_t=[pt(sm_h[r][1]) for r in range(rounds)],
+            l_u=[pt(sm_h[r][2]) for r in range(rounds)],
+            r_a=[pt(sm_h[r][3]) for r in range(rounds)],
+            r_t=[pt(sm_h[r][4]) for r in range(rounds)],
+            r_u=[pt(sm_h[r][5]) for r in range(rounds)],
+            x=scalar_of(x0h[0]))
 
-    sync_host_transcript(transcript, sstate, inp.ts.pos, inp.ts.pos_begin)
-    return curdleproof.Proof(A_h, cm_t, cm_u, R_h, S_h, sp_proof, ss_proof,
-                             sm_proof)
+        sync_host_transcript(transcript, sstate, inp.ts.pos,
+                             inp.ts.pos_begin)
+        return curdleproof.Proof(A_h, cm_t, cm_u, R_h, S_h, sp_proof,
+                                 ss_proof, sm_proof)
