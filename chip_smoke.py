@@ -70,7 +70,16 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
      and 138, decode_points once each; the counted device prove runs
      with the spans on
      (profiling.enable()) and prints its span table (the spans inside the chain run under the
-     sync-debug mode too);
+     sync-debug mode too); it runs the chain eagerly, the next device prove
+     captures the chain into a CUDA graph and the two after replay it,
+     all with the spans on: each byte-identical to the eager prove, its
+     `chain` span counting `chain.replays` 1 and the eager prove's
+     `chain.kernels`, the replays' spans those outside the chain alone;
+     the last replay runs under torch.profiler, and each hand-written
+     kernel's launches counted by name in the card's events, less its
+     wrapper launches outside the chain, equal the eager chain's; the
+     replay's counts on the card are the device prove's in the summary,
+     and the warm device prove times are replays;
   8. (run before phase 7) physical folding, the device MSM entry points,
      the functional STROBE, ELL=252 and ELL=508: one Whisk shuffle at each
      (bench.py's two largest sizes; the trackers from one batch_scalar_mul
@@ -284,6 +293,10 @@ DEVICE_PROVE_SPANS = ("device_prove", "draws", "upload", "chain",
                       "sameperm_gpa", "blinders", "ipa", "ipa_round",
                       "step3_sigma", "samemsm", "samemsm_round", "finalize",
                       "fetch", "assemble")
+# the spans of a replayed device prove: the chain's inner spans exist only
+# where `_chain` runs (eagerly, or as it is captured)
+DEVICE_REPLAY_SPANS = ("device_prove", "draws", "upload", "chain", "fetch",
+                       "assemble")
 DEVICE_PROVE_LAUNCHES = {"fr_pow_fixed": 17, "fr_mont_mul": 157,
                          "point_x16_add": 363,
                          "strobe_absorb_stream": 28,
@@ -1648,10 +1661,93 @@ def _golden_shuffle_proof(vec, prover: str, dev: torch.device):
     return codec.g1_to_bytes(M).hex(), buf.getvalue().hex()
 
 
+def check_graph_proves(prove, proof: bytes, chain_launched: list,
+                       seen: dict):
+    """The three device proves after the eager one, with the spans on: the
+    first captures the chain into a CUDA graph and replays it, the second
+    and third replay it, the third under torch.profiler (after a replay
+    in the profiler's warm-up step). Each is
+    byte-identical to the eager prove, one chain span counting one replay
+    and the eager chain's kernels, one fetch; the capture's wrappers
+    launch each kernel as the eager chain's did (`chain_launched[-1]`,
+    by kernel); the replays hold only the spans outside the chain and
+    run `_chain` not at all. What the profiled replay ran on the card,
+    each hand-written kernel counted by name in the card's events, less
+    what its wrappers launched outside the chain, is the eager chain's
+    launches, kernel for kernel. Returns the first two proves' ms and the
+    profiled replay's kernels on the card."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from go_curdleproofs_tpu_torch.ops import kernels
+    from go_curdleproofs_tpu_torch.utils import profiling
+
+    eager = chain_launched[-1]
+    walls, traced = [], None
+    for run in ("capture", "replay", "profiled replay"):
+        seen.update(chains=0, fetches=0)
+        kernels.reset_launches()
+        profiling.reset()
+        profiling.enable()
+        t0 = time.perf_counter()
+        try:
+            if run == "profiled replay":
+                # a first replay in the profiler's warm-up step, traced and
+                # discarded: late in a long process a profiler can miss the
+                # first kernels it should record
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA],
+                             schedule=schedule(wait=0, warmup=1, active=1,
+                                               repeat=1)) as prof:
+                    prove()
+                    torch.cuda.synchronize()
+                    prof.step()
+                    seen.update(chains=0, fetches=0)
+                    kernels.reset_launches()
+                    profiling.reset()
+                    _, got = prove()
+                    torch.cuda.synchronize()
+                    prof.step()
+                traced = kernels.traced_launches(prof.key_averages())
+            else:
+                _, got = prove()
+                torch.cuda.synchronize()
+        finally:
+            profiling.disable()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        chains = [r.counts for r in profiling.records() if r.name == "chain"]
+        spans = set(profiling.totals())
+        check(got == proof, f"the device prove's {run} byte-identical to the "
+              f"eager prove")
+        check(chains == [{"chain.replays": 1,
+                          "chain.kernels": sum(eager.values())}],
+              f"the {run}'s chain span counts {chains}")
+        check(seen == dict(chains=int(run == "capture"), fetches=1),
+              f"the {run}: one fetch, a chain only in the capture, saw {seen}")
+        check(run != "capture" or chain_launched[-1] == eager,
+              f"the capture's chain launches {chain_launched[-1]}")
+        inner = set(DEVICE_PROVE_SPANS) - set(DEVICE_REPLAY_SPANS)
+        check(set(DEVICE_REPLAY_SPANS) <= spans
+              and (run == "capture" or not spans & inner),
+              f"the {run}'s spans, saw {sorted(spans)}")
+    profiling.reset()
+    on_card = {k: n - kernels.launches[k] for k, n in traced.items()}
+    check(on_card == eager and all(on_card[k] == n for k, n
+                                   in DEVICE_PROVE_LAUNCHES.items()),
+          f"the replayed chain's kernels on the card "
+          f"{on_card} (profiler, less the wrappers' {dict(kernels.launches)}"
+          f"), the eager chain's launches {eager}")
+    print(f"device prove by the graph: capture {walls[0]:.1f} ms, replay "
+          f"{walls[1]:.1f} ms, byte-identical, chain.kernels "
+          f"{sum(eager.values())}; the replayed chain's kernels on the card "
+          f"(profiler) {on_card}, the eager chain's launches")
+    return walls[:2], traced
+
+
 def phase_device_prover(dev: torch.device, card: str, crs, insts, gv,
                         host_post, host_proof: bytes, host_ms) -> dict:
     """The device-resident one-fetch prover on the card. Returns the
-    launch counts of one ELL=124 device prove."""
+    launch counts of one ELL=124 device prove by the CUDA graph, read
+    from the card's events."""
     from go_curdleproofs_tpu_torch.models import (curdleproof,
                                                   device_common,
                                                   device_prover_full, whisk)
@@ -1664,14 +1760,18 @@ def phase_device_prover(dev: torch.device, card: str, crs, insts, gv,
     # with synchronising calls turned into errors, and every fetch counts.
     chain, fetch = device_prover_full._chain, device_common.fetch
     seen = dict(chains=0, fetches=0)
+    chain_launched = []         # each `_chain` run's wrapper launches
 
     def guarded_chain(inp):
         seen["chains"] += 1
+        before = dict(kernels.launches)
         torch.cuda.set_sync_debug_mode("error")
         try:
             return chain(inp)
         finally:
             torch.cuda.set_sync_debug_mode("default")
+            chain_launched.append({k: n - before[k]
+                                   for k, n in kernels.launches.items()})
 
     def counted_fetch(tensors):
         seen["fetches"] += 1
@@ -1722,7 +1822,8 @@ def phase_device_prover(dev: torch.device, card: str, crs, insts, gv,
               f"the device prove's spans, saw {sorted(spans)}")
         # every launch of the device-only kernels is inside the chain, and
         # the shuffle's are outside it
-        in_chain = [r.counts["chain.kernels"] for r in profiling.records()
+        records = profiling.records()
+        in_chain = [r.counts["chain.kernels"] for r in records
                     if r.name == "chain"]
         check(len(in_chain) == 1 and sum(DEVICE_PROVE_LAUNCHES.values())
               <= in_chain[0] < sum(counts.values()),
@@ -1732,6 +1833,12 @@ def phase_device_prover(dev: torch.device, card: str, crs, insts, gv,
         profiling.reset()
         check(seen == dict(chains=1, fetches=1),
               f"one chain and one fetch per device prove, saw {seen}")
+        check([r.counts.get("chain.replays") for r in records
+               if r.name == "chain"] == [0], "the first prove runs eagerly")
+        check(sum(chain_launched[-1].values()) == in_chain[0],
+              f"the eager chain's launches {chain_launched[-1]}")
+        replay_ms, replay_counts = check_graph_proves(prove, proof,
+                                                      chain_launched, seen)
         check(proof == host_proof and
               [(t.r_g, t.k_r_g) for t in post]
               == [(t.r_g, t.k_r_g) for t in host_post],
@@ -1761,13 +1868,16 @@ def phase_device_prover(dev: torch.device, card: str, crs, insts, gv,
     check_fr_mul_sizes(dev, fr_sizes.hist)
     print("no synchronising call between upload and the one fetch "
           "(chain run under set_sync_debug_mode('error'))")
-    print(f"device prove ELL=124: cold {cold_ms:.1f} ms, warm {dev_warm:.1f} "
-          f"ms (median of 5); host prove: cold {host_ms[0]:.1f} ms, warm "
+    print(f"device prove ELL=124: cold {cold_ms:.1f} ms (eager chain), "
+          f"capture and replay {replay_ms[0]:.1f} ms, replay "
+          f"{replay_ms[1]:.1f} ms, warm {dev_warm:.1f} ms (median of 5 "
+          f"replays); host prove: cold {host_ms[0]:.1f} ms, warm "
           f"{host_ms[1]:.1f} ms earlier, {host_warm[0]:.1f} and "
           f"{host_warm[1]:.1f} ms around the device runs; on {card}; "
           f"byte-identical proofs, verified, flipped byte rejected; "
-          f"launches per device prove {counts}")
-    return counts
+          f"launches per device prove (a replay's, profiler) "
+          f"{replay_counts}")
+    return replay_counts
 
 
 def check_fr_mul_sizes(dev: torch.device, hist: dict) -> None:

@@ -156,7 +156,9 @@ def kernel_launches() -> int:
 def enqueue(chain: Callable, *args):
     """chain(*args), the host's enqueue of a prover's device chain, in a
     `chain` span. While spans record, the span's counter `chain.kernels` is
-    the number of hand-written kernel launches enqueued inside it."""
+    the number of hand-written kernel launches enqueued inside it (a replay
+    of the device prover's CUDA graph, which calls no wrapper, adds the
+    launches the graph holds, counted at its capture)."""
     with profiling.span("chain") as sp:
         before = kernel_launches() if sp else 0
         out = chain(*args)

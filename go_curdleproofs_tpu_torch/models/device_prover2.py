@@ -278,10 +278,10 @@ def _sm_round_update(W, X, gamma, ginv, half: int, blog: int):
     return W, X
 
 
-def run_sm_rounds(ts: strobe_dev.TState, table: PointVec, xd, n: int):
-    """Same-multiscalar folding rounds; see run_ipa_rounds."""
+def run_sm_rounds(ts: strobe_dev.TState, table: PointVec, W, xd, n: int):
+    """Same-multiscalar folding rounds from the weight vector W (uploaded
+    ones: the chain itself uploads nothing); see run_ipa_rounds."""
     lr_blobs, gammas = [], []
-    W = fr_const([1] * n, xd.device)
     for r in range(n.bit_length() - 1):
         half = n >> (r + 1)
         blog = n.bit_length() - 2 - r
@@ -314,10 +314,11 @@ def prove_samemsm_on_device(G: List[Affine], A: Affine, Z_t: Affine,
                                            device)
         ts = transcript_to_device(transcript, device)
         r_dev, x_dev = fr_const(r, device), fr_const(x, device)
+        ones = fr_const([1] * n, device)
 
     def chain():
         b_atu, xs = _sm_setup(table, r_dev, ts, azz, tu_bytes, x_dev)
-        lr_blobs, _gammas, xs = run_sm_rounds(ts, table, xs, n)
+        lr_blobs, _gammas, xs = run_sm_rounds(ts, table, ones, xs, n)
         return ([compress_dev.compress_xy(b_atu), fr_bytes_be(xs[:1]), ts.st]
                 + lr_blobs)
 

@@ -25,18 +25,33 @@ arguments) as one chain of device work over a device STROBE transcript:
     x||y byte rows that need no square root), every proof scalar, the
     sanity flag and the final transcript state.
 
-Between `_upload` and the fetch, `_chain` makes no device-to-host copy and
-no other synchronising call. Byte-identical to the host prover.
+Between `_upload` and the fetch, `_chain` makes no device-to-host copy, no
+other synchronising call and no upload. Byte-identical to the host prover.
+
+On a CUDA device the chain is one CUDA graph (`_ChainGraph`): the first
+prove of a shape runs `_chain` eagerly, which fills the device constants'
+caches; the second captures it over fixed input buffers; every prove from
+the second on copies its inputs into those buffers and replays the graph,
+one launch for the ~14,000 of the eager chain. The CPU runs `_chain`
+eagerly every time, and so does a CUDA device inside `eager_chain()`. The
+`chain` span counts `chain.replays` (1 when a replay served the prove, 0
+when the chain ran eagerly) beside `chain.kernels` (on a replay, the
+launches the graph holds, counted at its capture; `kernels.launches`
+counts only what a wrapper launches); the spans inside the chain exist
+only where `_chain` runs (eagerly, or once as it is captured).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import threading
 from dataclasses import dataclass
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import torch
 
-from ..ops import compress_dev, curve, fr, strobe_dev
+from ..ops import compress_dev, curve, fr, halflimb, kernels, strobe_dev
 from ..ops.curve import PointVec
 from ..utils import field_host as fh
 from ..utils import profiling
@@ -395,7 +410,8 @@ def _chain(inp: _Inputs) -> List[torch.Tensor]:
     with profiling.span("samemsm"):
         b_atu, xd = dp2._sm_setup(inp.table_sm, f["r_sm"], ts, azz,
                                   inp.tu_bytes, f["x"])
-        sm_blobs, sm_gammas, xd = dp2.run_sm_rounds(ts, inp.table_sm, xd, n)
+        sm_blobs, sm_gammas, xd = dp2.run_sm_rounds(ts, inp.table_sm,
+                                                    f["ones"], xd, n)
 
     with profiling.span("finalize"):
         rows, sc_be, sane = _piece_finalize(
@@ -405,6 +421,148 @@ def _chain(inp: _Inputs) -> List[torch.Tensor]:
         return ([rows, sc_be, sane, fr_bytes_be(csd[:1]),
                  fr_bytes_be(dsd[:1]), fr_bytes_be(xd[:1]), ts.st]
                 + ipa_blobs + sm_blobs)
+
+
+def _remap(inp: _Inputs, fn) -> _Inputs:
+    """`inp` with fn applied to every tensor that `_chain` reads (a new
+    TState at the same positions)."""
+    def one(v):
+        if isinstance(v, torch.Tensor):
+            return fn(v)
+        if isinstance(v, PointVec):
+            return curve.pmap(fn, v)
+        if isinstance(v, dict):
+            return {k: fn(t) for k, t in v.items()}
+        if isinstance(v, strobe_dev.TState):
+            return strobe_dev.TState(fn(v.st), v.pos, v.pos_begin)
+        return v
+    return _Inputs(**{f.name: one(getattr(inp, f.name))
+                      for f in dataclasses.fields(inp)})
+
+
+def _tensors(inp: _Inputs) -> List[torch.Tensor]:
+    """Every tensor that `_chain` reads, in one fixed order."""
+    out: List[torch.Tensor] = []
+
+    def keep(t):
+        out.append(t)
+        return t
+
+    _remap(inp, keep)
+    return out
+
+
+class _ChainGraph:
+    """`_chain` of one shape on one CUDA device as a CUDA graph.
+
+    `capture` copies a prove's inputs into buffers of its own, captures
+    `_chain` over them (the hand-written launchers enqueue on torch's
+    current stream, which is the capture stream) and keeps what the graph
+    reads: the input buffers, the output tensors, every device constant
+    the chain took from a `halflimb.device_cache` (held whatever the caches
+    evict), the launches of each kernel it holds and the transcript
+    positions it ends at, which depend on the shape and the labels alone.
+    It then replays once, for the prove whose inputs it copied (a capture
+    runs nothing). Where the chain meets a device constant that its cache
+    no longer holds, the upload raises `halflimb.UploadInCapture`: the
+    capture keeps nothing, takes back the launches it counted and returns
+    False, and the prove runs the chain eagerly, which uploads the
+    constant again for the next capture. `replay` copies a later prove's
+    inputs in and replays; it calls no wrapper, so `kernels.launches`
+    stays as it was. `lock` is held from the copy-in to the end of the
+    fetch, so that two proves never share the buffers."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.warm = False               # an eager prove has run
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+
+    def capture(self, inp: _Inputs) -> bool:
+        inputs = _remap(inp, torch.clone)
+        # taken before the chain, which moves `inputs.ts.st` on
+        buffers = _tensors(inputs)
+        before = dict(kernels.launches)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with halflimb.holding() as consts, torch.cuda.graph(graph):
+                outputs = _chain(inputs)
+        except halflimb.UploadInCapture:
+            kernels.launches.update(before)
+            return False
+        self.buffers, self.consts, self.outputs = buffers, consts, outputs
+        self.launches = {k: n - before[k]
+                         for k, n in kernels.launches.items()}
+        self.end = (inputs.ts.pos, inputs.ts.pos_begin)
+        self.graph = graph
+        graph.replay()
+        return True
+
+    def replay(self, inp: _Inputs) -> None:
+        for buf, t in zip(self.buffers, _tensors(inp)):
+            buf.copy_(t)
+        self.graph.replay()
+
+
+_graphs: Dict[tuple, _ChainGraph] = {}
+_graphs_lock = threading.Lock()
+_eager_blocks = 0                       # open `eager_chain()` blocks
+
+
+@contextlib.contextmanager
+def eager_chain():
+    """A block in which every device prove runs its chain eagerly, for
+    tools that wrap the chain's pieces or the kernels' wrappers: a replay
+    of the graph calls neither."""
+    global _eager_blocks
+    _eager_blocks += 1
+    try:
+        yield
+    finally:
+        _eager_blocks -= 1
+
+
+def _graph_entry(inp: _Inputs) -> Optional[_ChainGraph]:
+    """The graph entry of the prove's shape and device, made on first use;
+    None off CUDA, where the chain always runs eagerly, and inside an
+    `eager_chain()` block."""
+    if inp.ts.st.device.type != "cuda" or _eager_blocks:
+        return None
+    key = (inp.ts.st.device, inp.ell, inp.ts.pos, inp.ts.pos_begin,
+           tuple((tuple(t.shape), t.dtype) for t in _tensors(inp)))
+    with _graphs_lock:
+        return _graphs.setdefault(key, _ChainGraph())
+
+
+def _eager(inp: _Inputs) -> List[torch.Tensor]:
+    profiling.count("chain.replays", 0)
+    return _chain(inp)
+
+
+def _graphed(entry: _ChainGraph, inp: _Inputs) -> List[torch.Tensor]:
+    """The chain by the entry's graph, captured over this prove's inputs if
+    it has none yet; eagerly where the capture fails."""
+    if entry.graph is not None:
+        entry.replay(inp)
+        # the launches the graph holds, counted as it was captured
+        profiling.count("chain.kernels", sum(entry.launches.values()))
+    elif not entry.capture(inp):
+        return _eager(inp)
+    profiling.count("chain.replays", 1)
+    inp.ts.pos, inp.ts.pos_begin = entry.end
+    return entry.outputs
+
+
+def _run_chain(inp: _Inputs) -> List:
+    """The chain and its one fetch: eagerly on the CPU and on a shape's
+    first prove on a CUDA device, by the shape's graph after that."""
+    entry = _graph_entry(inp)
+    if entry is None:
+        return fetch(enqueue(_eager, inp))
+    with entry.lock:
+        if entry.warm:
+            return fetch(enqueue(_graphed, entry, inp))
+        entry.warm = True
+        return fetch(enqueue(_eager, inp))
 
 
 @profiling.traced("device_prove")
@@ -447,8 +605,7 @@ def prove_on_device(crs, Rs: List[Affine], Ss: List[Affine],
     with profiling.span("upload"):
         inp = _upload(crs, Rs, Ss, Ts, Us, M, perm, k, rs_m, draws, as_,
                       transcript, device)
-    rows_h, sc_h, sane_h, c0h, d0h, x0h, sstate, *blobs_h = fetch(
-        enqueue(_chain, inp))
+    rows_h, sc_h, sane_h, c0h, d0h, x0h, sstate, *blobs_h = _run_chain(inp)
 
     if not bool(sane_h[0]):
         raise ValueError(

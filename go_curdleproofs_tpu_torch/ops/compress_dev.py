@@ -11,8 +11,6 @@ point and the host does no inversion.
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 import torch
 
@@ -25,7 +23,7 @@ FLAG_LARGEST = 0xA0
 FLAG_INFINITY = 0xC0
 
 
-@functools.lru_cache(maxsize=None)
+@halflimb.device_cache()
 def _inf_row(device: torch.device) -> torch.Tensor:
     """The 48-byte encoding of infinity on `device` (uploaded once)."""
     return halflimb.upload([FLAG_INFINITY] + [0] * 47, torch.uint8, device)

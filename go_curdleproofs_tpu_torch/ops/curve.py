@@ -40,7 +40,6 @@ around `FoldedBases`' scalar-side folding and `fold` around
 
 from __future__ import annotations
 
-import functools
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -310,7 +309,7 @@ def scalar_mul_steps(points: PointVec, digits: torch.Tensor) -> PointVec:
     return _halves_add(acc)
 
 
-@functools.lru_cache(maxsize=None)
+@halflimb.device_cache()
 def _rows_index(rows: Tuple[int, ...], device: torch.device) -> torch.Tensor:
     """Base-row indices on `device`, uploaded once per tuple and device."""
     return halflimb.upload(rows, torch.long, device)

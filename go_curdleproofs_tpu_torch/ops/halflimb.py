@@ -19,9 +19,10 @@ exactly this form.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from types import SimpleNamespace
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,31 +35,79 @@ DTYPE = torch.int32
 _MAX_COL = 0x1FFFE          # column bound that `resolve` accepts
 
 
+class UploadInCapture(RuntimeError):
+    """An upload while a CUDA graph is captured on the current stream: a
+    copy of pageable host memory, which a graph cannot hold."""
+
+
 def upload(vals, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     """Host values (a list or a numpy array) -> a tensor on `device`. The
     copy does not wait for the device, so an upload in the middle of a
-    chain of device work leaves the chain asynchronous."""
+    chain of device work leaves the chain asynchronous. Raises
+    UploadInCapture, before any copy, while a CUDA graph is captured."""
+    if (torch.device(device).type == "cuda"
+            and torch.cuda.is_current_stream_capturing()):
+        raise UploadInCapture(f"an upload to {device} while a CUDA graph "
+                              f"is captured")
     host = torch.as_tensor(vals, dtype=dtype)
     return host.to(device, non_blocking=True)
+
+
+_holding: List[list] = []          # the lists of the open `holding()` blocks
+
+
+def device_cache(maxsize: Optional[int] = None):
+    """functools.lru_cache for a function that returns device constants
+    (tensors, or tuples and namespaces of them). Inside a `holding()` block
+    each value it returns is also kept in that block's list, so that a CUDA
+    graph captured in the block, which reads the constants at their
+    addresses, can hold them for as long as it lives, whatever the cache
+    evicts or clears later."""
+    def wrap(fn):
+        cached = functools.lru_cache(maxsize=maxsize)(fn)
+
+        @functools.wraps(fn)
+        def call(*args):
+            out = cached(*args)
+            for held in _holding:
+                held.append(out)
+            return out
+
+        call.cache_clear, call.cache_info = (cached.cache_clear,
+                                             cached.cache_info)
+        return call
+    return wrap
+
+
+@contextlib.contextmanager
+def holding():
+    """A block that keeps every value a `device_cache` function returns
+    inside it: yields the list that holds them."""
+    held: list = []
+    _holding.append(held)
+    try:
+        yield held
+    finally:
+        _holding.remove(held)
 
 
 def limbs_of(v: int, n: int) -> List[int]:
     return [(v >> (16 * i)) & MASK for i in range(n)]
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache()
 def const_limbs(v: int, n: int, device: torch.device) -> torch.Tensor:
     """The n 16-bit limbs of the integer v as an int64 tensor on `device`
     (uploaded once per value and device)."""
     return upload(limbs_of(v, n), torch.int64, device)
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache()
 def _arange(n: int, device: torch.device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.int64, device=device)
 
 
-@functools.lru_cache(maxsize=None)
+@device_cache()
 def _diag(na: int, nb: int, device: torch.device) -> torch.Tensor:
     """Column of limb product (i, j), flattened."""
     return upload([i + j for i in range(na) for j in range(nb)],
@@ -151,10 +200,9 @@ class Field:
         self.r_bits = 32 * nwords
         self.r_mod = (1 << self.r_bits) % modulus
         self.r_inv = pow(1 << self.r_bits, -1, modulus)
-        self.consts = functools.lru_cache(maxsize=None)(self._build_consts)
-        self.row = functools.lru_cache(maxsize=None)(self._build_row)
-        self.one_plain = functools.lru_cache(maxsize=None)(
-            self._build_one_plain)
+        self.consts = device_cache()(self._build_consts)
+        self.row = device_cache()(self._build_row)
+        self.one_plain = device_cache()(self._build_one_plain)
 
     def _build_consts(self, device: torch.device) -> SimpleNamespace:
         """Per-device constant limb vectors (built once per device)."""

@@ -21,6 +21,8 @@ ops/csrc/gen_fp_asm.py) has
     ...), never a wrapper, so on the card it stays independent of every
     kernel;
   * a launch counter (`launches`), incremented where the kernel launches.
+    A replay of a CUDA graph launches through no wrapper: `traced_launches`
+    reads what ran on the card from a torch.profiler trace instead.
 
 The CUDA sources build with nvcc, one process per .cu file started
 together, into `go_curdleproofs_tpu_torch/_build/libcurdle_<file>.so` at
@@ -30,9 +32,9 @@ first use, again whenever the sources' hash changes, and load with ctypes.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -72,6 +74,25 @@ launches: Dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+_TRACE_NAMES = {name: re.compile(rf"(?<!\w){name}_kernel\b")
+                for name in KERNEL_NAMES}
+
+
+def traced_launches(events) -> Dict[str, int]:
+    """{name: launches} of each hand-written kernel among a torch.profiler
+    trace's events (`key_averages()`), by its CUDA function `<name>_kernel`
+    in the device events: what ran on the card, whether a wrapper launched
+    it or a CUDA graph replayed it."""
+    out = dict.fromkeys(KERNEL_NAMES, 0)
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name, pat in _TRACE_NAMES.items():
+            if pat.search(e.key):
+                out[name] += e.count
+    return out
 
 
 # -- build and load -----------------------------------------------------------
@@ -829,7 +850,7 @@ def strobe_challenge32_plain(state: torch.Tensor, label: bytes, pos: int,
     return st, chal
 
 
-@functools.lru_cache(maxsize=256)
+@halflimb.device_cache(maxsize=256)
 def _label_on(label: bytes, device: torch.device) -> torch.Tensor:
     """A challenge label over 32 bytes on `device`, where the kernel reads
     it: uploaded once per label and device."""

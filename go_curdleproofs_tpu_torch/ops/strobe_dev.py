@@ -27,7 +27,6 @@ rejection-samples against r and re-absorbs a challenge in one launch.
 
 from __future__ import annotations
 
-import functools
 from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -144,7 +143,7 @@ def bytes_tensor(data, device: torch.device) -> torch.Tensor:
     return halflimb.upload(arr.copy(), torch.uint8, device)
 
 
-@functools.lru_cache(maxsize=1024)
+@halflimb.device_cache(maxsize=1024)
 def _const(data: bytes, device: torch.device) -> torch.Tensor:
     """Bytes that recur (operation headers, the pos_begin of each rate
     crossing) on `device`, uploaded once per value and device."""
@@ -268,7 +267,7 @@ def get_and_append_challenge(s: SState,
 
 # -- the prover's static-position engine ---------------------------------------
 
-@functools.lru_cache(maxsize=256)
+@halflimb.device_cache(maxsize=256)
 def _rows_layout(pos: int, pb: int, label: bytes, k: int, L: int,
                  device: torch.device):
     """`_bulk_layout` with its arrays on `device` (uploaded once per
@@ -279,7 +278,7 @@ def _rows_layout(pos: int, pb: int, label: bytes, k: int, L: int,
             bytes_tensor(pbs, device), pos1, pb1)
 
 
-@functools.lru_cache(maxsize=256)
+@halflimb.device_cache(maxsize=256)
 def _prefix_layout(pos: int, pb: int, label: bytes, device: torch.device):
     stream, pbs, pos1, pb1 = _challenge_prefix(pos, pb, label)
     return (bytes_tensor(stream, device), bytes_tensor(pbs, device),

@@ -90,7 +90,9 @@ HOST_STAGES = [(device_prover_full, "_upload", True),
 class PieceClock:
     """Wraps the device prover's pieces with CUDA events in the stream, and
     its three host stages with host clocks (the upload ends in a
-    synchronise so that the chain starts on an idle card)."""
+    synchronise so that the chain starts on an idle card). The chain runs
+    eagerly while the clock is on: a replay of its CUDA graph has no
+    pieces."""
 
     def __init__(self):
         self.events = []
@@ -104,9 +106,12 @@ class PieceClock:
         for owner, attr, sync_after in HOST_STAGES:
             self._patch(owner, attr, self._wrap_host(getattr(owner, attr),
                                                      attr, sync_after))
+        self._eager = device_prover_full.eager_chain()
+        self._eager.__enter__()
         return self
 
     def __exit__(self, *exc):
+        self._eager.__exit__(*exc)
         for owner, attr, fn in self._saved:
             setattr(owner, attr, fn)
 
@@ -167,8 +172,10 @@ class MulShapes:
 
 
 def mul_histogram(fn, name: str = "mont_mul") -> dict:
-    """{elements: launches} of the multiply `name` over one run of fn."""
-    with MulShapes(name) as shapes:
+    """{elements: launches} of the multiply `name` over one run of fn, the
+    device prover's chain run eagerly (a replay of its CUDA graph calls no
+    wrapper)."""
+    with device_prover_full.eager_chain(), MulShapes(name) as shapes:
         fn()
     return {str(k): v for k, v in sorted(shapes.hist.items())}
 
@@ -202,12 +209,12 @@ def profile_device_prove(name: str, fn) -> dict:
     with PieceClock() as clock:
         piece_walls = [_wall_ms(fn) for _ in range(REPS)]
         pieces = {k: v / REPS for k, v in clock.piece_ms().items()}
-    kernels.reset_launches()
     with torch.profiler.profile(activities=[
             torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]) as prof:
         prof_walls = [_wall_ms(fn) for _ in range(REPS)]
-    launches = {k: v / REPS for k, v in kernels.launches.items()}
+    launches = {k: v / REPS for k, v in
+                kernels.traced_launches(prof.key_averages()).items()}
     cuda_events = [e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA]
     device_ms = sum(e.self_device_time_total for e in cuda_events) / 1e3

@@ -176,13 +176,15 @@ def test_a_device_prove_is_one_request_with_its_spans(proved):
 def test_chain_kernels_counts_the_launches_inside_the_chain(proved,
                                                             monkeypatch):
     """In the prove, `chain.kernels` is the launch counters' change across
-    `_chain` (none on the CPU: the plain versions launch nothing); through
+    `_chain` (none on the CPU: the plain versions launch nothing) and
+    `chain.replays` is 0 (the CPU runs the chain eagerly); through
     device_common.enqueue with made-up launches, the ones inside the chain
     count and the ones before and after do not; with the spans off the
     chain runs and nothing records."""
     dev = proved["device"]
     (chain,) = [r for r in dev.records if r.name == "chain"]
-    assert chain.counts == {"chain.kernels": dev.chain_launches[0]}
+    assert chain.counts == {"chain.kernels": dev.chain_launches[0],
+                            "chain.replays": 0}
     assert dev.chain_launches == [dev.launched]
 
     monkeypatch.setattr(kernels, "launches",
