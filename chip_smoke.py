@@ -31,7 +31,7 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
      against the host's group law;
      windowed_combine and msm_select_reduce also at ragged shapes, at a
      forced split, and at inputs that hit the corners of the complete
-     point formulas, each time beside the time of the previous design;
+     point formulas;
      mont_mul at every batch size the paths give it (one element broadcast
      on either side, one tensor as both operands) and above the grid-stride
      limit of its lane teams; the Fp product on 65,536 pairs (every pair of
@@ -139,6 +139,7 @@ non-zero and no result line is printed. Without CUDA it exits non-zero.
 Imports neither jax nor the JAX package.
 """
 
+import collections
 import contextlib
 import hashlib
 import io
@@ -222,56 +223,6 @@ PERMUTATION_US = 2.48
 # bytes, a retry's header from 126, a first header twice from 159)
 LONG_LABEL_LENS = (33, 95, 127, 166, 300)
 
-# Kernel ms of the previous design of a redesigned kernel, from this script
-# at the commit before its redesign on an NVIDIA H100 80GB HBM3, 700.00 W:
-# printed beside the new times. windowed_combine: one thread a row;
-# msm_select_reduce: one block of 128 threads a (window, job) (both commit
-# f0bd51a). pow_fixed: one bit a step on the 64-bit C product;
-# point_x16_add: one thread a point, 44 products deep (both commit c3c7562).
-# fr_pow_fixed: one bit a step on the 64-bit C product; strobe_absorb_stream:
-# one thread permutes out of shared memory (both commit 9fb31f6).
-# point_add, point_double: from time_kernels.py at commit 1d18dbf, the first
-# of two runs in one call.
-PREVIOUS_DESIGN_MS = {
-    "fr_pow_fixed [1] exponent r-2": 0.2807,
-    "strobe_absorb_stream [256 x 48]": 1.5394,
-    "windowed_combine [33, 1]": 5.5717,
-    "windowed_combine [33, 6]": 5.5730,
-    "windowed_combine [33, 2048]": 5.8333,
-    "msm_select_reduce [9, 6, 256]": 0.4743,
-    "msm_select_reduce [9, 1, 256]": 0.4664,
-    "msm_select_reduce [9, 1, 2048]": 1.2082,
-    "pow_fixed [1024] sqrt exponent": 0.9242,
-    "pow_fixed [256] inverse exponent": 0.9313,
-    "point_x16_add [24]": 0.1675,
-    "point_x16_add [2]": 0.1669,
-    "point_add [1]": 0.0306,
-    "point_add [2]": 0.0587,
-    "point_add [4]": 0.0526,
-    "point_add [7]": 0.0372,
-    "point_add [24]": 0.0348,
-    "point_add [33]": 0.0524,
-    "point_add [1025]": 0.0574,
-    "point_add [4, 1, 1024]": 0.0559,
-    "point_double [1]": 0.0498,
-    "point_double [4]": 0.0510,
-    "point_double [24]": 0.0484,
-    "point_double [1024]": 0.0397,
-    "point_double [1025]": 0.0313,
-}
-# point_add, point_double: one thread a point, 12 / 8 products deep (commit
-# 1d18dbf). Their events above read the wrapper; this is the time a launch
-# on the card (torch.profiler), from time_kernels.py at that commit, the
-# first of two runs in one call, same card and limit.
-PREVIOUS_DESIGN_CARD_MS = {
-    "point_add [1]": 0.0138, "point_add [2]": 0.0137,
-    "point_add [4]": 0.0137, "point_add [7]": 0.0137,
-    "point_add [24]": 0.0138, "point_add [33]": 0.0138,
-    "point_add [1025]": 0.0142, "point_add [4, 1, 1024]": 0.0146,
-    "point_double [1]": 0.0095, "point_double [4]": 0.0095,
-    "point_double [24]": 0.0096, "point_double [1024]": 0.0098,
-    "point_double [1025]": 0.0098,
-}
 MADS_PER_SQUARE = 12 * 13 // 2 + 12 * 12   # 78 partial products, reduction
 FR_MADS_PER_SQUARE = 8 * 9 // 2 + 8 * 8    # 36 partial products, reduction
 # launches of one ELL=124 device prove that a redesign must leave as they are
@@ -551,11 +502,9 @@ def phase_kernels(dev: torch.device) -> dict:
     print("kernel vs plain: exact integer results, tolerance 0")
 
     def report(name, shape, err, ms, plain_ms, bnd, keep=True, what=""):
-        prev = None if what else PREVIOUS_DESIGN_MS.get(f"{name} {shape}")
-        print(f"{name} {shape}{what}: exact; kernel {ms:.4f} ms"
-              + (f" (previous design {prev:.4f} ms)" if prev else "")
-              + f", plain {plain_ms:.2f} ms, bound {bnd['bound_ms']:.6f} ms "
-              f"by {bnd['bound_by']}")
+        print(f"{name} {shape}{what}: exact; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms, bound {bnd['bound_ms']:.6f} ms by "
+              f"{bnd['bound_by']}")
         if keep:
             res[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd)
 
@@ -654,7 +603,7 @@ def phase_kernels(dev: torch.device) -> dict:
 
     def check_point_op(name, args, want_aff, shape, keep):
         """The kernel against its plain version (words) and the host
-        oracle (affine), then timed beside the previous design."""
+        oracle (affine), then timed."""
         kernel = getattr(kernels, name)
         plain = getattr(kernels, name + "_plain")
         got = kernel(*args)
@@ -668,9 +617,7 @@ def phase_kernels(dev: torch.device) -> dict:
                cuda_ms(lambda: plain(*args)),
                bound(coords * n * ELEM_BYTES, n * products), keep=keep)
         on_card = card_ms(lambda: kernel(*args), name + "_kernel")
-        prev = PREVIOUS_DESIGN_CARD_MS[f"{name} {shape}"]
-        print(f"{name} {shape}: on the card {on_card:.4f} ms a launch "
-              f"(previous design {prev:.4f} ms)")
+        print(f"{name} {shape}: on the card {on_card:.4f} ms a launch")
 
     # B3: the device prover's 1-24 points, the table build's [1024] row
     # (the widest shape on the paths), 1025 for a ragged last block
@@ -1067,11 +1014,9 @@ def phase_kernels_device_prover(dev: torch.device) -> dict:
     res = {}
 
     def report(name, shape, ms, plain_ms, bnd, keep, what=""):
-        prev = None if what else PREVIOUS_DESIGN_MS.get(f"{name} {shape}")
-        print(f"{name} {shape}{what}: exact; kernel {ms:.4f} ms"
-              + (f" (previous design {prev:.4f} ms)" if prev else "")
-              + f", plain {plain_ms:.2f} ms, bound {bnd['bound_ms']:.6f} ms "
-              f"by {bnd['bound_by']}")
+        print(f"{name} {shape}{what}: exact; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.2f} ms, bound {bnd['bound_ms']:.6f} ms by "
+              f"{bnd['bound_by']}")
         if keep:
             res[name] = dict(max_abs_err=0, ms=ms, plain_ms=plain_ms, **bnd)
 
@@ -1752,7 +1697,6 @@ def phase_device_prover(dev: torch.device, card: str, crs, insts, gv,
                                                   device_common,
                                                   device_prover_full, whisk)
     from go_curdleproofs_tpu_torch.ops import kernels
-    from go_curdleproofs_tpu_torch.profile_port import MulShapes
     from go_curdleproofs_tpu_torch.utils import profiling
     from go_curdleproofs_tpu_torch.utils.rand import Rand
 
@@ -1965,6 +1909,33 @@ class CallInputs:
             setattr(mod, name, fn)
 
 
+class MulShapes:
+    """Counts the elements of every launch of a multiply wrapper
+    (`mont_mul` or `fr_mont_mul`, by its output) while it is entered:
+    {elements: launches}."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.hist = collections.defaultdict(int)
+
+    def __enter__(self):
+        from go_curdleproofs_tpu_torch.ops import kernels
+
+        self._saved = getattr(kernels, self.name)
+
+        def counted(a, b):
+            out = self._saved(a, b)
+            self.hist[out.numel() // out.shape[-1]] += 1
+            return out
+        setattr(kernels, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        from go_curdleproofs_tpu_torch.ops import kernels
+
+        setattr(kernels, self.name, self._saved)
+
+
 def _challenge_perms(state: bytes, label: bytes, pos: int, pb: int) -> int:
     """Keccak-f permutations that get_and_append_challenge(label) takes from
     this STROBE state: a host replica through Merlin, counted."""
@@ -2144,6 +2115,23 @@ def check_batch_msm(calls: dict, b: int, dev: torch.device, group) -> None:
           f"+ k3*P3 on the host")
 
 
+def chained_proofs(crs, pre, count: int, *, device: torch.device,
+                   seed: int = 0xBA7C) -> list:
+    """`count` distinct Whisk shuffle proofs from the host prover, each
+    shuffling the previous one's post-trackers (as block after block does):
+    [(pre, post, proof bytes)]; proof i from Rand(seed + i)."""
+    from go_curdleproofs_tpu_torch.models import whisk
+    from go_curdleproofs_tpu_torch.utils.rand import Rand
+
+    out = []
+    for i in range(count):
+        post, proof = whisk.generate_whisk_shuffle_proof(
+            crs, pre, Rand(seed + i), device=device)
+        out.append((pre, post, proof))
+        pre = post
+    return out
+
+
 def phase_batch_verify(dev: torch.device, card: str, crs, insts) -> dict:
     """Batched verification (parallel/) on the card with a one-rank NCCL
     group made from a FileStore: the dry run, then batches of 2 (the
@@ -2160,7 +2148,6 @@ def phase_batch_verify(dev: torch.device, card: str, crs, insts) -> dict:
     from go_curdleproofs_tpu_torch.parallel import batch as pbatch
     from go_curdleproofs_tpu_torch.parallel import dryrun
     from go_curdleproofs_tpu_torch.parallel import msm as pmsm
-    from go_curdleproofs_tpu_torch.profile_port import chained_proofs
     from go_curdleproofs_tpu_torch.utils.rand import Rand
 
     t0 = time.perf_counter()

@@ -27,7 +27,6 @@ copy of every host module it needs.
                       many proofs) and the MSM sharded over the ranks of a
                       torch.distributed process group
   convert.py          state carried to and from the JAX package (tests)
-  profile_port.py     where the time goes on the card
   time_kernels.py     the kernels' times on the card, two checkouts compared
 
 Every public entry point that touches a device takes it explicitly

@@ -1,12 +1,13 @@
-"""Device-resident folding provers with lazy base folding (counterpart of
-go_curdleproofs_tpu/models/device_prover2.py).
+"""The folding rounds of the one-fetch device prover
+(models/device_prover_full.py), with lazy base folding (counterpart of
+go_curdleproofs_tpu/models/device_prover2.py's round pieces).
 
-Mirrors innerproductargument.go:42-188 and samemultiscalarargument.go:37-157
-of the Go reference byte for byte (transcript, draw order, proof bytes),
-restructured for a device:
+Mirrors the rounds of innerproductargument.go:42-188 and
+samemultiscalarargument.go:37-157 of the Go reference byte for byte
+(transcript, draw order, proof bytes), restructured for a device:
 
   * the bases and their multiples table live on the device and are built
-    once per argument. The reference folds the bases every round
+    once per prove. The reference folds the bases every round
     (G' = G_lo + gamma*G_hi). Since <v, G_r> = <lift(v), G_0>, every fold
     instead becomes O(n) Fr lane algebra on the device: a per-lane
     gamma-weight vector W (W[i0] takes in gamma_j for every fold bit set in
@@ -24,31 +25,28 @@ restructured for a device:
     two-point H-term multiplication of an IPA round is the window loop
     `curve.scalar_mul_steps` on `point_x16_add`.
 
-One fetch at the very end brings back the proof bytes and the transcript
-state.
+The pieces only enqueue: the chain's one fetch at the very end
+(device_prover_full) brings back the proof bytes and the transcript state.
+The IPA runs on one base row [Gs|Hs], its Gs' lazy by the grand-product
+rescale (Wgp = diag): every cross-term MSM addresses row 0 of the table.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Tuple
 
 import torch
 
 from ..ops import compress_dev, curve, fr, strobe_dev
 from ..ops.curve import PointVec
 from ..utils import profiling
-from ..utils.field_host import Affine
-from ..utils.rand import Rand
-from ..utils.transcript import Transcript
 from .device_common import (LABEL_ALPHA, LABEL_BETA, LABEL_GAMMA, LABEL_LOOP,
                             LABEL_STEP1, SM_LABEL_ALPHA, SM_LABEL_GAMMA,
                             SM_LABEL_LOOP, SM_LABEL_STEP1,
                             append_points_dev, append_scalars_dev,
-                            challenge_fr, challenge_to_fr, enqueue, fetch,
-                            fr_bytes_be, fr_const, fr_digits, fr_scalar,
-                            lane_index, masked_inner, point_at, point_rows,
-                            roll_fr, scalar_of, stack_points,
-                            sync_host_transcript, transcript_to_device)
+                            challenge_fr, challenge_to_fr, fr_digits,
+                            lane_index, masked_inner, point_at, roll_fr,
+                            stack_points)
 
 
 def _fold_bit(n: int, blog: int, device: torch.device) -> torch.Tensor:
@@ -82,13 +80,13 @@ def _gamma_or_one(bit: torch.Tensor, gamma: torch.Tensor) -> torch.Tensor:
 # IPA pieces
 
 
-def _ipa_setup(table: PointVec, rows: Sequence[int], Wg0, Wgp0, rs_c, rs_d,
+def _ipa_setup(table: PointVec, Wg0, Wgp0, rs_c, rs_d,
                ts: strobe_dev.TState, CD: PointVec, z, cs, ds, hpt: PointVec):
     """Blinder commitments, the step-1 absorb, alpha and beta, the scalar
     blend and H' = beta*H (innerproductargument.go:60-91)."""
     dig = fr_digits(fr.mul(torch.stack([Wg0, Wgp0]),
                            torch.stack([rs_c, rs_d])))          # [2, 2n, W]
-    bcd = curve.msm_rows_points_from_table(table, dig, rows[:2])
+    bcd = curve.msm_rows_points_from_table(table, dig, (0, 0))
     append_points_dev(ts, LABEL_STEP1, CD)
     append_scalars_dev(ts, LABEL_STEP1, z)
     append_points_dev(ts, LABEL_STEP1, bcd)
@@ -100,8 +98,8 @@ def _ipa_setup(table: PointVec, rows: Sequence[int], Wg0, Wgp0, rs_c, rs_d,
     return bcd, hcur, blend[0], blend[1]
 
 
-def _ipa_round_cross(table: PointVec, rows: Sequence[int], hcur: PointVec,
-                     Wg, Wgp, CS, DS, half: int, blog: int) -> PointVec:
+def _ipa_round_cross(table: PointVec, hcur: PointVec, Wg, Wgp, CS, DS,
+                     half: int, blog: int) -> PointVec:
     """The round's 4 cross-terms L_C, L_D, R_C, R_D as lifted level-0 MSMs
     against the fixed table, plus the <c_L,d_R> and <c_R,d_L> H-terms
     (innerproductargument.go:100-147)."""
@@ -115,7 +113,7 @@ def _ipa_round_cross(table: PointVec, rows: Sequence[int], hcur: PointVec,
                     torch.stack([cl, dr, cr, dl]))
     keep = torch.stack([hi, ~hi, ~hi, hi])[..., None]
     outs = curve.msm_rows_points_from_table(
-        table, fr_digits(torch.where(keep, lifted, 0)), rows)       # [4]
+        table, fr_digits(torch.where(keep, lifted, 0)), (0, 0, 0, 0))
 
     ips = masked_inner(torch.stack([cl, cr]), torch.stack([dr, dl]), half)
     h_terms = curve.scalar_mul_steps(stack_points([hcur, hcur]),
@@ -153,88 +151,23 @@ def _ipa_round_update(Wg, Wgp, CS, DS, gamma, ginv, half: int, blog: int):
     return W[0], W[1], folded[0], folded[1]
 
 
-def run_ipa_rounds(ts: strobe_dev.TState, table: PointVec,
-                   rows: Sequence[int], hcur: PointVec, Wg, Wgp, csd, dsd,
-                   n: int):
+def run_ipa_rounds(ts: strobe_dev.TState, table: PointVec, hcur: PointVec,
+                   Wg, Wgp, csd, dsd, n: int):
     """The IPA's log(n) folding rounds as chained device work. Returns
-    (lr_blobs [rounds] of [4, 96], gammas [rounds], csd, dsd). Shared by
-    the stand-alone device IPA and the full device prove."""
+    (lr_blobs [rounds] of [4, 96], gammas [rounds], csd, dsd)."""
     lr_blobs, gammas = [], []
     for r in range(n.bit_length() - 1):
         half = n >> (r + 1)
         blog = n.bit_length() - 2 - r
         with profiling.span("ipa_round"):
-            lr_pts = _ipa_round_cross(table, rows, hcur, Wg, Wgp, csd, dsd,
-                                      half, blog)
+            lr_pts = _ipa_round_cross(table, hcur, Wg, Wgp, csd, dsd, half,
+                                      blog)
             blobs, gamma = _round_absorb(ts, lr_pts, LABEL_LOOP, LABEL_GAMMA)
             lr_blobs.append(blobs)
             gammas.append(gamma)
             Wg, Wgp, csd, dsd = _ipa_round_update(
                 Wg, Wgp, csd, dsd, gamma, _gamma_inv(gamma), half, blog)
     return lr_blobs, gammas, csd, dsd
-
-
-def prove_ipa_on_device(crs_gs: List[Affine], crs_gs_prime: List[Affine],
-                        crs_h: Affine, C: Affine, D: Affine, z: int,
-                        cs: List[int], ds: List[int],
-                        transcript: Transcript, rand: Rand, *,
-                        device: torch.device,
-                        stacked: Optional[curve.StackedVec] = None,
-                        diag: Optional[List[int]] = None):
-    """Drop-in replacement for inner_product.prove: byte-identical proof,
-    the whole recursion on the device, one final fetch.
-
-    stacked: device StackedVec holding the bases. With `diag` (the
-    grand-product rescale, grandproductargument.go:94-103) it is the one
-    row [Gs|Hs] and Gs' is lazy: row G' = diag * row G, folded into the
-    scalar weights. Without diag it holds physical rows [Gs, Gs']."""
-    from . import inner_product
-
-    n = len(cs)
-    rounds = n.bit_length() - 1
-    rs_c, rs_d = inner_product.generate_ipa_blinders(rand, cs, ds)
-
-    with profiling.span("upload"):
-        if stacked is None:
-            stacked = curve.StackedVec.from_affine([crs_gs, crs_gs_prime],
-                                                   device=device, pad_to=n)
-        table = stacked.table()
-        Wg0 = fr_const([1] * n, device)
-        if diag is not None:
-            rows = (0, 0, 0, 0)                     # all on row 0
-            Wgp0 = fr_const(list(diag[:n]) + [0] * (n - min(n, len(diag))),
-                            device)
-        else:
-            rows = (0, 1, 0, 1)
-            Wgp0 = Wg0
-        ts = transcript_to_device(transcript, device)
-        CD = curve.from_affine_host([C, D], device=device)
-        hpt = curve.from_affine_host([crs_h], device=device)
-        rs_cv, rs_dv, cs_v, ds_v = (fr_const(v, device)
-                                    for v in (rs_c, rs_d, cs, ds))
-        zv = fr_scalar(z, device)
-
-    def chain():
-        bcd, hcur, csd, dsd = _ipa_setup(table, rows, Wg0, Wgp0, rs_cv,
-                                         rs_dv, ts, CD, zv, cs_v, ds_v, hpt)
-        lr_blobs, _gammas, csd, dsd = run_ipa_rounds(
-            ts, table, rows, hcur, Wg0, Wgp0, csd, dsd, n)
-        return ([compress_dev.compress_xy(bcd), fr_bytes_be(csd[:1]),
-                 fr_bytes_be(dsd[:1]), ts.st] + lr_blobs)
-
-    b_cd_h, c0h, d0h, sstate, *lr_h = fetch(enqueue(chain))
-
-    with profiling.span("assemble"):
-        pt = compress_dev.decode_xy_host
-        proof = inner_product.Proof(
-            b_c=pt(b_cd_h[0]), b_d=pt(b_cd_h[1]),
-            l_cs=[pt(lr_h[r][0]) for r in range(rounds)],
-            r_cs=[pt(lr_h[r][2]) for r in range(rounds)],
-            l_ds=[pt(lr_h[r][1]) for r in range(rounds)],
-            r_ds=[pt(lr_h[r][3]) for r in range(rounds)],
-            c0=scalar_of(c0h[0]), d0=scalar_of(d0h[0]))
-        sync_host_transcript(transcript, sstate, ts.pos, ts.pos_begin)
-    return proof
 
 
 # ---------------------------------------------------------------------------
@@ -294,46 +227,3 @@ def run_sm_rounds(ts: strobe_dev.TState, table: PointVec, W, xd, n: int):
             W, xd = _sm_round_update(W, xd, gamma, _gamma_inv(gamma), half,
                                      blog)
     return lr_blobs, gammas, xd
-
-
-def prove_samemsm_on_device(G: List[Affine], A: Affine, Z_t: Affine,
-                            Z_u: Affine, T: List[Affine], U: List[Affine],
-                            x: List[int], transcript: Transcript,
-                            rand: Rand, *, device: torch.device):
-    """Drop-in replacement for same_multiscalar.prove (same proof bytes)."""
-    from . import same_multiscalar
-
-    n = len(x)
-    rounds = n.bit_length() - 1
-    r = rand.get_frs(n)
-    with profiling.span("upload"):
-        table = curve.StackedVec.from_affine([G, T, U], device=device,
-                                             pad_to=n).table()
-        azz = curve.from_affine_host([A, Z_t, Z_u], device=device)
-        tu_bytes = strobe_dev.bytes_tensor(point_rows(list(T) + list(U)),
-                                           device)
-        ts = transcript_to_device(transcript, device)
-        r_dev, x_dev = fr_const(r, device), fr_const(x, device)
-        ones = fr_const([1] * n, device)
-
-    def chain():
-        b_atu, xs = _sm_setup(table, r_dev, ts, azz, tu_bytes, x_dev)
-        lr_blobs, _gammas, xs = run_sm_rounds(ts, table, ones, xs, n)
-        return ([compress_dev.compress_xy(b_atu), fr_bytes_be(xs[:1]), ts.st]
-                + lr_blobs)
-
-    b_h, x0h, sstate, *lr_h = fetch(enqueue(chain))
-
-    with profiling.span("assemble"):
-        pt = compress_dev.decode_xy_host
-        proof = same_multiscalar.Proof(
-            b_a=pt(b_h[0]), b_t=pt(b_h[1]), b_u=pt(b_h[2]),
-            l_a=[pt(lr_h[rd][0]) for rd in range(rounds)],
-            l_t=[pt(lr_h[rd][1]) for rd in range(rounds)],
-            l_u=[pt(lr_h[rd][2]) for rd in range(rounds)],
-            r_a=[pt(lr_h[rd][3]) for rd in range(rounds)],
-            r_t=[pt(lr_h[rd][4]) for rd in range(rounds)],
-            r_u=[pt(lr_h[rd][5]) for rd in range(rounds)],
-            x=scalar_of(x0h[0]))
-        sync_host_transcript(transcript, sstate, ts.pos, ts.pos_begin)
-    return proof

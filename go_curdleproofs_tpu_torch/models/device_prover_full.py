@@ -392,12 +392,11 @@ def _chain(inp: _Inputs) -> List[torch.Tensor]:
 
     # inner-product argument over the one row [Gs|Hs], Gs' lazy by diag
     with profiling.span("ipa"):
-        rows0 = (0, 0, 0, 0)
         bcd, hcur, csd, dsd = dp2._ipa_setup(
-            table, rows0, f["ones"], diag, rs_v, rs_d, ts, CD, z, cs_full,
-            ds_full, point_at(inp.base_pts, 2))
+            table, f["ones"], diag, rs_v, rs_d, ts, CD, z, cs_full, ds_full,
+            point_at(inp.base_pts, 2))
         ipa_blobs, ipa_gammas, csd, dsd = dp2.run_ipa_rounds(
-            ts, table, rows0, hcur, f["ones"], diag, csd, dsd, n)
+            ts, table, hcur, f["ones"], diag, csd, dsd, n)
 
     # step 3 and the sigma protocol: R = <as, Rs>, S = <as, Ss>
     with profiling.span("step3_sigma"):

@@ -4,8 +4,10 @@ inner-product argument over rescaled bases.
 
 The prover keeps ONE base row [Gs|Hs] on the device; the rescaled bases
 Gs' = Gs * beta^-i are a scalar-side diagonal of a `curve.FoldedBases`, so
-there is no device rescale and the multiples table builds once. The
-verifier needs O(1) group operations through Gsum/Hsum."""
+there is no device rescale and the multiples table builds once. This
+prover is host-orchestrated only; the one-fetch device prover has its own
+pieces (models/device_prover_full.py). The verifier needs O(1) group
+operations through Gsum/Hsum."""
 
 from __future__ import annotations
 
@@ -22,7 +24,6 @@ from ..utils.field_host import Affine
 from ..utils.rand import Rand
 from ..utils.transcript import Transcript
 from . import inner_product
-from .device_mode import DEFAULT_PROVER, check_prover
 from .msm_accumulator import MsmAccumulator
 
 LABEL_STEP1 = b"gprod_step1"
@@ -61,11 +62,8 @@ class Proof:
 @profiling.traced("grand_product.prove")
 def prove(crs: CRS, B: Affine, result: int, bs: List[int], r_bs: List[int],
           transcript: Transcript, rand: Rand, *,
-          device: torch.device, prover: str = DEFAULT_PROVER) -> Proof:
-    """grandproductargument.go:42-204. With prover="device" the
-    inner-product argument runs device-resident on the same one-row
-    bases."""
-    check_prover(prover)
+          device: torch.device) -> Proof:
+    """grandproductargument.go:42-204."""
     ell = len(crs.gs)
 
     # Step 1
@@ -148,20 +146,14 @@ def prove(crs: CRS, B: Affine, result: int, bs: List[int], r_bs: List[int],
     if selfcheck2 != D:
         raise ValueError("msm(G', d) != D")
 
-    if prover == "device":
-        # the device IPA uses the SAME one-row bases and table; Gs'|Hs' is
-        # lazy (row G' = diag * row G, folded into the scalar weights)
-        merged = curve.StackedVec(ghsv.pv, ell + len(crs.hs))
-    else:
-        # lazy 2-row view of the SAME device bases:
-        # row 0 = [Gs|Hs], row 1 = [Gs'|Hs'] = diag * [Gs|Hs]
-        merged = curve.FoldedBases(ghsv, rows=[0, 0], diags={1: diag},
-                                   n_valid=ell + len(crs.hs))
+    # lazy 2-row view of the SAME device bases:
+    # row 0 = [Gs|Hs], row 1 = [Gs'|Hs'] = diag * [Gs|Hs]
+    merged = curve.FoldedBases(ghsv, rows=[0, 0], diags={1: diag},
+                               n_valid=ell + len(crs.hs))
     ipa_crs = inner_product.CRS(list(crs.gs) + list(crs.hs), [], crs.h,
-                                stacked=merged, diag=diag)
+                                stacked=merged)
     ipa_proof = inner_product.prove(ipa_crs, C, D, z, cs_full, ds_full,
-                                    transcript, rand, device=device,
-                                    prover=prover)
+                                    transcript, rand, device=device)
     return Proof(C, r_p, ipa_proof)
 
 

@@ -5,14 +5,17 @@ innerproductargument.go of the Go reference).
 The prover keeps its bases on the device as a `curve.FoldedBases` for the
 whole recursion: every round's four cross-term MSMs are one `msm_many`
 call, the folds are scalar-side, the Fr vector folds and the Fiat-Shamir
-transcript stay on the host. The verifier's two checks defer into the
-accumulator as linear combinations: no group operation and no device call.
+transcript stay on the host. This prover is host-orchestrated only; the
+one-fetch device prover (models/device_prover_full.py) runs the same rounds
+inside its own chain (models/device_prover2.py's `run_ipa_rounds`). The
+verifier's two checks defer into the accumulator as linear combinations:
+no group operation and no device call.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import BinaryIO, List, Optional, Sequence, Tuple, Union
+from typing import BinaryIO, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -23,7 +26,6 @@ from ..utils import profiling
 from ..utils.field_host import Affine
 from ..utils.rand import Rand
 from ..utils.transcript import Transcript
-from .device_mode import DEFAULT_PROVER, check_prover
 from .msm_accumulator import MsmAccumulator, as_terms
 
 LABEL_STEP1 = b"ipa_step1"
@@ -39,11 +41,9 @@ class CRS:
     gs_prime: List[Affine]
     h: Affine
     # optional device-resident bases: the grand-product prover hands over
-    # its one [Gs|Hs] row, whose second row is lazy: Gs'[i] = diag[i] *
-    # Gs[i] (grandproductargument.go:94-103): a two-row FoldedBases view for
-    # the host prover, the StackedVec itself plus `diag` for the device one
-    stacked: Optional[Union[curve.FoldedBases, curve.StackedVec]] = None
-    diag: Optional[List[int]] = None
+    # a two-row FoldedBases view of its one [Gs|Hs] row, whose second row
+    # is lazy: Gs'[i] = diag[i] * Gs[i] (grandproductargument.go:94-103)
+    stacked: Optional[curve.FoldedBases] = None
 
 
 @dataclass
@@ -110,23 +110,13 @@ def generate_ipa_blinders(rand: Rand, cs: Sequence[int],
 @profiling.traced("inner_product.prove")
 def prove(crs: CRS, C: Affine, D: Affine, z: int, cs: List[int],
           ds: List[int], transcript: Transcript, rand: Rand, *,
-          device: torch.device, prover: str = DEFAULT_PROVER) -> Proof:
-    """innerproductargument.go:42-188. prover="device" runs the whole
-    recursion device-resident (models/device_prover2.py), same bytes."""
+          device: torch.device) -> Proof:
+    """innerproductargument.go:42-188."""
     if len(cs) != len(ds):
         raise ValueError("cs and ds are not the same length")
     n = len(cs)
     if n & (n - 1) != 0:
         raise ValueError("cs and ds are not a power of two")
-
-    if check_prover(prover) == "device":
-        from . import device_prover2
-        stacked = crs.stacked
-        if isinstance(stacked, curve.FoldedBases):
-            stacked = stacked.sv
-        return device_prover2.prove_ipa_on_device(
-            crs.gs, crs.gs_prime, crs.h, C, D, z, cs, ds, transcript, rand,
-            device=device, stacked=stacked, diag=crs.diag)
 
     # Step 1
     rs_c, rs_d = generate_ipa_blinders(rand, cs, ds)

@@ -5,8 +5,11 @@ Z_u = <x, U> share x.
 
 The prover keeps G, T, U stacked on the device as one three-row
 `curve.FoldedBases`: each round's six cross-term MSMs are one `msm_many`
-call and the folds are scalar-side. The verifier's three checks defer into
-the accumulator as linear combinations."""
+call and the folds are scalar-side. This prover is host-orchestrated only;
+the one-fetch device prover (models/device_prover_full.py) runs the same
+rounds inside its own chain (models/device_prover2.py's `run_sm_rounds`).
+The verifier's three checks defer into the accumulator as linear
+combinations."""
 
 from __future__ import annotations
 
@@ -22,7 +25,6 @@ from ..utils import profiling
 from ..utils.field_host import Affine
 from ..utils.rand import Rand
 from ..utils.transcript import Transcript
-from .device_mode import DEFAULT_PROVER, check_prover
 from .msm_accumulator import MsmAccumulator
 
 LABEL_STEP1 = b"same_msm_step1"
@@ -72,14 +74,8 @@ class Proof:
 def prove(G: List[Affine], A: Affine, Z_t: Affine, Z_u: Affine,
           T: List[Affine], U: List[Affine], x: List[int],
           transcript: Transcript, rand: Rand, *,
-          device: torch.device, prover: str = DEFAULT_PROVER) -> Proof:
-    """samemultiscalarargument.go:37-157. prover="device" runs the whole
-    recursion device-resident (models/device_prover2.py), same bytes."""
-    if check_prover(prover) == "device":
-        from . import device_prover2
-        return device_prover2.prove_samemsm_on_device(
-            G, A, Z_t, Z_u, T, U, x, transcript, rand, device=device)
-
+          device: torch.device) -> Proof:
+    """samemultiscalarargument.go:37-157."""
     n = len(x)
     r = rand.get_frs(n)
 

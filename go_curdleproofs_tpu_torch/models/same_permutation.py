@@ -1,7 +1,9 @@
 """Same-permutation argument (go_curdleproofs_tpu/models/
 same_permutation.py; samepermutationargument.go of the Go reference): a
 Neff-style reduction of "A commits to a permutation of as, the one that M
-commits to" to a grand product."""
+commits to" to a grand product. The prover is host-orchestrated only;
+the one-fetch device prover has its own pieces
+(models/device_prover_full.py)."""
 
 from __future__ import annotations
 
@@ -17,7 +19,6 @@ from ..utils.field_host import Affine
 from ..utils.rand import Rand
 from ..utils.transcript import Transcript
 from . import grand_product
-from .device_mode import DEFAULT_PROVER
 from .msm_accumulator import MsmAccumulator
 
 LABEL_STEP1 = b"same_perm_step1"
@@ -56,9 +57,8 @@ def permute(vs: Sequence, perm: Sequence[int]) -> list:
 def prove(crs: CRS, A: Affine, M: Affine, as_: List[int],
           permutation: Sequence[int], rs_a: List[int], rs_m: List[int],
           transcript: Transcript, rand: Rand, *,
-          device: torch.device, prover: str = DEFAULT_PROVER) -> Proof:
-    """samepermutationargument.go:32-101; `prover` goes on to the
-    grand-product argument."""
+          device: torch.device) -> Proof:
+    """samepermutationargument.go:32-101."""
     # Step 1
     transcript.append_points(LABEL_STEP1, A, M)
     transcript.append_scalars(LABEL_STEP1, *as_)
@@ -87,7 +87,7 @@ def prove(crs: CRS, A: Affine, M: Affine, as_: List[int],
 
     gpa_proof = grand_product.prove(
         grand_product.CRS(crs.gs, crs.hs, crs.h), B, p, bs, rs_b,
-        transcript, rand, device=device, prover=prover)
+        transcript, rand, device=device)
     return Proof(B, gpa_proof)
 
 

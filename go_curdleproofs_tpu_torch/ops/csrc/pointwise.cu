@@ -51,8 +51,8 @@ constexpr int kMaxBlocks = 132 * 16;   // grid-stride beyond this many blocks
 // batch: the GLV beta multiply of a whole x plane, the multiply by plain 1
 // that leaves Montgomery form), so a broadcast is never materialised.
 // Bound: bytes (2 * 144 multiply-adds over 144 bytes an element), but a
-// launch on the paths holds 1 to 18,432 elements (profile_port.py's
-// histogram: a device prove's 145 launches are 1 to 18 elements but for
+// launch on the paths holds 1 to 18,432 elements (a histogram on the
+// card: a device prove's 145 launches are 1 to 18 elements but for
 // 16 of 108 to 3,456; a verify's 1,024 and 9,216; a host prove's 256 to
 // 3,456), a warp or a few warps: one element's chain of dependent
 // instructions, its loads and the launch set the time. One thread an

@@ -87,7 +87,7 @@ SPLITS = (1, 2, 4, 8, 16)
 ADD_SHAPES = [(1,), (2,), (4,), (7,), (24,), (33,), (1025,), (4, 1, 1024)]
 DOUBLE_SHAPES = [(1,), (4,), (24,), (1024,), (1025,)]
 POINT_THREADS = (32, 64, 128)
-# elements a launch of B1 on the paths (profile_port.py's histogram: the
+# elements a launch of B1 on the paths (a histogram on the card: the
 # device prover's 1-18 and 108, the host prover's 256-3,456, the
 # verifier's 1,024 and 9,216) and the [9, 1, 2048] beta multiply, each
 # times one element (chip_smoke.py checks the kernel at these); and both
@@ -98,7 +98,7 @@ MUL_SHAPES = [(1,), (2,), (3,), (4,), (6,), (9,), (10,), (18,), (108,),
 MUL_PAIRS = [2048, 65536]
 MUL_TEAMS = (1, 2, 4)
 MUL_THREADS = (32, 128)
-# elements a launch of fr_mont_mul in a device prove (profile_port.py's
+# elements a launch of fr_mont_mul in a device prove (chip_smoke.py's
 # histogram at ELL=124: 1: 38 launches, 2: 12, 3-124: 22, 126-129: 30,
 # 256: 39, 384: 1, 512: 14), as pairs and with one element broadcast on
 # either side; and 65,536 pairs (the stress)

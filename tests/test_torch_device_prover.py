@@ -1,118 +1,37 @@
 """The port's device-resident prover on the CPU (the same chain on the
-kernels' plain versions), as a whole:
+kernels' plain versions), around its one-fetch chain:
 
-  * the stand-alone device IPA and same-multiscalar provers at N=8, with
-    the seeds of tests/test_device_prover2.py, byte-identical to the port's
-    host provers, with the transcript in lockstep afterwards;
-  * the grand-product branch (`prover="device"` hands the inner-product
-    argument to the device prover on the same one-row bases);
   * the blinder pieces flag a degenerate solve;
-  * the `prover` argument is validated and nothing else chooses.
+  * the `prover` argument is validated, `whisk` hands it down unchanged,
+    and only `whisk.generate_whisk_shuffle_proof` and `curdleproof.prove`
+    take it: the sub-arguments' provers are host-orchestrated only;
+  * the chain's one fetch is one buffer split back.
 
-The whole one-fetch prove is in tests/test_torch_device_prover_full.py, the
-JAX package's device provers are held against these in
-tests/test_torch_device_prover_jax.py, the golden bytes in
-tests/test_torch_device_prover_golden.py. Exact: bytes, no tolerance."""
+The whole one-fetch prove, with its in-chain IPA and same-multiscalar
+rounds, is held against the host prover in
+tests/test_torch_device_prover_full.py, against the golden bytes in
+tests/test_torch_device_prover_golden.py, and its CUDA graph in
+tests/test_torch_device_graph.py. Exact: bytes, no tolerance."""
 
-import io
+import inspect
 
 import pytest
 import torch
 
 from go_curdleproofs_tpu_torch.models import (curdleproof, device_common,
-                                              device_mode, device_prover2,
+                                              device_mode,
                                               device_prover_full,
                                               grand_product, inner_product,
-                                              same_multiscalar, whisk)
+                                              same_multiscalar,
+                                              same_permutation, whisk)
 from go_curdleproofs_tpu_torch.ops import fr
 from go_curdleproofs_tpu_torch.utils import field_host as fh
 from go_curdleproofs_tpu_torch.utils.rand import Rand
-from go_curdleproofs_tpu_torch.utils.transcript import Transcript
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
 N = 8
 ELL = 4
-
-
-def _ser(p) -> bytes:
-    b = io.BytesIO()
-    p.serialize(b)
-    return b.getvalue()
-
-
-def ipa_instance():
-    """tests/test_device_prover2.py:33-42."""
-    rand = Rand(0)
-    gs = rand.get_g1s(N)
-    us = rand.get_frs(N)
-    gsp = [fh.g1_mul(g, u) for g, u in zip(gs, us)]
-    h = rand.get_g1()
-    cs = rand.get_frs(N)
-    ds = rand.get_frs(N)
-    z = fh.fr_inner_product(cs, ds)
-    return gs, gsp, h, fh.g1_msm(gs, cs), fh.g1_msm(gsp, ds), z, cs, ds
-
-
-def samemsm_instance():
-    """tests/test_device_prover2.py:58-65."""
-    rand = Rand(1)
-    gs = rand.get_g1s(N)
-    T = rand.get_g1s(N)
-    U = rand.get_g1s(N)
-    xs = rand.get_frs(N)
-    return (gs, fh.g1_msm(gs, xs), fh.g1_msm(T, xs), fh.g1_msm(U, xs), T, U,
-            xs)
-
-
-def test_device_ipa_byte_identical_to_host_prover():
-    gs, gsp, h, C, D, z, cs, ds = ipa_instance()
-    out = []
-    for prover in device_mode.PROVERS:
-        t, r = Transcript(b"ipa"), Rand(7)
-        p = inner_product.prove(inner_product.CRS(gs, gsp, h), C, D, z,
-                                list(cs), list(ds), t, r, device=CPU,
-                                prover=prover)
-        out.append((_ser(p), t.get_and_append_challenge(b"probe"),
-                    r.get_fr()))
-    assert out[0] == out[1]
-    t, r = Transcript(b"ipa"), Rand(7)
-    direct = device_prover2.prove_ipa_on_device(
-        gs, gsp, h, C, D, z, list(cs), list(ds), t, r, device=CPU)
-    assert _ser(direct) == out[0][0]
-
-
-def test_device_samemsm_byte_identical_to_host_prover():
-    gs, A, Zt, Zu, T, U, xs = samemsm_instance()
-    out = []
-    for prover in device_mode.PROVERS:
-        t, r = Transcript(b"sm"), Rand(9)
-        p = same_multiscalar.prove(gs, A, Zt, Zu, T, U, list(xs), t, r,
-                                   device=CPU, prover=prover)
-        out.append((_ser(p), t.get_and_append_challenge(b"probe"),
-                    r.get_fr()))
-    assert out[0] == out[1]
-
-
-def test_grand_product_device_branch_byte_identical():
-    """The grand-product argument with its inner-product argument on the
-    device prover (lazy Gs' by `diag` on the one-row bases)."""
-    rand = Rand(5)
-    crs = curdleproof.generate_crs(ELL, rand, device=CPU)
-    bs = rand.get_frs(ELL)
-    r_bs = rand.get_frs(curdleproof.N_BLINDERS)
-    p = 1
-    for b in bs:
-        p = p * b % fh.R
-    B = fh.g1_add(fh.g1_msm(crs.gs, bs), fh.g1_msm(crs.hs, r_bs))
-    out = []
-    for prover in device_mode.PROVERS:
-        t, r = Transcript(b"gpa"), Rand(6)
-        proof = grand_product.prove(
-            grand_product.CRS(crs.gs, crs.hs, crs.h), B, p, list(bs),
-            list(r_bs), t, r, device=CPU, prover=prover)
-        out.append((_ser(proof), t.get_and_append_challenge(b"probe")))
-    assert out[0] == out[1]
 
 
 def test_blinder_pieces_flag_a_zero_term2():
@@ -140,10 +59,6 @@ def test_prover_argument_is_validated_and_threaded(monkeypatch):
     with pytest.raises(ValueError, match="prover must be one of"):
         curdleproof.prove(crs, Rs, Ss, Rs, Ss, None, [0, 1, 2, 3], 1, [],
                           Rand(1), device=CPU, prover="auto")
-    with pytest.raises(ValueError):
-        inner_product.prove(inner_product.CRS([], [], None), None, None, 0,
-                            [1, 2], [3, 4], Transcript(b"x"), Rand(1),
-                            device=CPU, prover="v2")
     # whisk hands its argument down unchanged; the default is "host"
     seen = []
 
@@ -158,6 +73,29 @@ def test_prover_argument_is_validated_and_threaded(monkeypatch):
             whisk.generate_whisk_shuffle_proof(crs, pre, Rand(2), device=CPU,
                                                **kwargs)
     assert seen == ["host", "device"]
+
+
+# every prove entry point of the port, and whether it takes `prover`
+PROVE_ENTRY_POINTS = {
+    "whisk.generate_whisk_shuffle_proof":
+        (whisk.generate_whisk_shuffle_proof, True),
+    "curdleproof.prove": (curdleproof.prove, True),
+    "same_permutation.prove": (same_permutation.prove, False),
+    "grand_product.prove": (grand_product.prove, False),
+    "inner_product.prove": (inner_product.prove, False),
+    "same_multiscalar.prove": (same_multiscalar.prove, False),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PROVE_ENTRY_POINTS))
+def test_only_whisk_and_curdleproof_take_a_prover(name):
+    """The choice of prover is made in one place: `curdleproof.prove`,
+    reached from `whisk`. The sub-arguments below it take no `prover`."""
+    fn, takes = PROVE_ENTRY_POINTS[name]
+    params = inspect.signature(fn).parameters
+    assert ("prover" in params) is takes, name
+    if takes:
+        assert params["prover"].default == device_mode.DEFAULT_PROVER
 
 
 def test_fetch_is_one_buffer_split_back():

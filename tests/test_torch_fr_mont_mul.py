@@ -161,7 +161,7 @@ def test_random_pairs_against_ints(side):
 # -- on the card -----------------------------------------------------------------
 
 # elements a launch of fr_mont_mul in an ELL=124 device prove
-# (profile_port.py's histogram on the card)
+# (chip_smoke.py's histogram on the card)
 DEVICE_PROVE_SIZES = (1, 2, 3, 4, 8, 16, 32, 64, 66, 96, 98, 112, 114, 120,
                       122, 124, 126, 127, 128, 129, 256, 384, 512)
 

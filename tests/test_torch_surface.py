@@ -70,6 +70,10 @@ NOT_PORTED = {
                                                 "(expand) does it in place",
     "models/device_mode.py:device_prover_version": "the port's prover is an "
         "argument (check_prover), never read from CURDLE_DEVICE_PROVER",
+    **_left("the port runs these rounds only inside the one-fetch chain "
+            "(device_prover_full); no caller proves one folding argument "
+            "alone on the device", "models/device_prover2.py",
+            "prove_ipa_on_device", "prove_samemsm_on_device"),
     "utils/profiling.py:ENABLED": "profiling.recording(): CURDLE_PROFILE "
                                   "is read once at import (enable()), and "
                                   "torch.profiler turns spans on",
