@@ -11,8 +11,8 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
      per source, started together) and the host C library with cc; ptxas
      must report no stack frame and no spills for point_add_kernel,
      point_double_kernel, every instance of mont_mul_kernel,
-     fr_mont_mul_kernel, strobe_challenge32_kernel and
-     decode_points_kernel;
+     fr_mont_mul_kernel, strobe_challenge32_kernel, decode_points_kernel
+     and glv_recode_kernel;
   3. decode_points at 1, 17, 248, 585, 2,141 and 18,720 points (subgroup
      points of both signs, x off the curve, points on the curve outside the
      subgroup, the order-3 point) against its plain version word for word
@@ -21,6 +21,11 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
      benchmark/core/roofline.py; one batch_decompress on the card is one
      decode_points launch, no other kernel and one device-to-host copy, and
      raises the host codec's errors, on-curve first;
+     glv_recode (the host MSMs' GLV split and recode) at 1,152 and 4,608
+     scalars, the Barrett corrections' edges among them, word for word
+     against glv.scalars_to_digits_glv and its plain version, timed by CUDA
+     events and the profiler beside its bound, with the host's recode of
+     the same scalars and its 32-byte conversion alone;
      then each of the other eleven kernels against its plain torch version
      on the card, at the shapes the verifier and the provers give it,
      compared exactly by value (integers, tolerance 0), with timings and
@@ -174,6 +179,7 @@ REPLACES = {
     "strobe_absorb_stream": "go_curdleproofs_tpu/ops/strobe_dev.py:314",
     "strobe_challenge32": "go_curdleproofs_tpu/ops/strobe_dev.py:361",
     "decode_points": "go_curdleproofs_tpu/ops/codec_batch.py:58",
+    "glv_recode": "go_curdleproofs_tpu/ops/glv.py:82",
 }
 # the kernels that the verifier and the host-orchestrated prover run (the
 # host prover's inverses run pow_fixed too); the device-resident prover runs
@@ -188,18 +194,21 @@ PROVE_SEED = 0x5EED       # Rand seed of the ELL=124 prove
 # leave as they are
 PATH_LAUNCHES = {
     "verify": dict(windowed_combine=1, msm_select_reduce=2, point_add=3,
-                   point_double=1, mont_mul=1, decode_points=1),
+                   point_double=1, mont_mul=1, decode_points=1,
+                   glv_recode=1),
     "prove": dict(windowed_combine=22, msm_select_reduce=21, point_add=11,
-                  point_double=5, mont_mul=10, decode_points=1),
+                  point_double=5, mont_mul=10, decode_points=1,
+                  glv_recode=22),
     "device prove": dict(windowed_combine=22, msm_select_reduce=21,
                          point_add=61, point_double=14, mont_mul=138,
-                         decode_points=1),
+                         decode_points=1, glv_recode=3),
 }
 # kernels that ptxas must compile with no stack frame and no spills (every
 # instance of a template)
 NO_STACK_KERNELS = ("point_add_kernel", "point_double_kernel",
                     "mont_mul_kernel", "fr_mont_mul_kernel",
-                    "strobe_challenge32_kernel", "decode_points_kernel")
+                    "strobe_challenge32_kernel", "decode_points_kernel",
+                    "glv_recode_kernel")
 
 # The card's peaks for the roofline bound (NVIDIA H100 SXM data sheet and
 # Hopper white paper): 3.35e12 bytes/s of HBM3; 67e12 float32 FLOP/s outside
@@ -234,7 +243,7 @@ BATCH_SIZES = (8, 32)     # chained batches, beside the fixture's two proofs
 _BATCH_FEW = dict(mont_mul=1, point_add=2, point_double=1, pow_fixed=0,
                   windowed_combine=1, msm_select_reduce=1, point_x16_add=0,
                   fr_pow_fixed=0, fr_mont_mul=0, strobe_absorb_stream=0,
-                  strobe_challenge32=0, decode_points=1)
+                  strobe_challenge32=0, decode_points=1, glv_recode=1)
 BATCH_LAUNCHES = {2: _BATCH_FEW, 8: _BATCH_FEW,
                   32: dict(_BATCH_FEW, point_add=4)}
 # spans of a device prove with the spans on (profiling.enable(); `chain`
@@ -955,6 +964,71 @@ def phase_decode(dev: torch.device) -> dict:
     return res
 
 
+# scalars a glv_recode launch: the final MSM of a verify at ELL=124 (1,024
+# static and 128 dynamic bases) and at ELL=508 (4,096 and 512)
+RECODE_SIZES = (1152, 4608)
+
+
+def phase_glv_recode(dev: torch.device) -> dict:
+    """glv_recode at RECODE_SIZES: the Barrett corrections' edges, then
+    seeded random scalars, word for word against glv.scalars_to_digits_glv
+    and against its plain version; one launch each; timed by CUDA events
+    and the profiler beside its bound (32 bytes in, 264 out a scalar),
+    with the host's recode of the same scalars and the 32-byte conversion
+    that the host still does. Runs early: the card's profiler stops
+    reporting kernels after a few thousand in a process."""
+    import numpy as np
+
+    from go_curdleproofs_tpu_torch.ops import glv, kernels
+    from go_curdleproofs_tpu_torch.time_kernels import card_ms
+    from go_curdleproofs_tpu_torch.utils import field_host as fh
+
+    rng = random.Random(2323)
+    lam = glv.LAMBDA
+    edges = [0, 1, lam - 1, lam, lam + 1, 2 * lam - 1, 2 * lam,
+             3 * lam - 1, 3 * lam, 2 ** 128 - 1, 2 ** 128, fh.R - 1,
+             fh.R - lam]
+    res = {}
+    for m in RECODE_SIZES:
+        sc = edges + [rng.randrange(fh.R) for _ in range(m - len(edges))]
+        t0 = time.perf_counter()
+        want = glv.scalars_to_digits_glv(sc)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        buf = bytearray().join([s.to_bytes(32, "little") for s in sc])
+        bytes_ms = (time.perf_counter() - t0) * 1e3
+        words = torch.from_numpy(
+            np.frombuffer(buf, np.int32).reshape(m, 8)).to(dev)
+        kernels.reset_launches()
+        got = kernels.glv_recode(words)
+        torch.cuda.synchronize()
+        check(kernels.launches["glv_recode"] == 1, "one glv_recode launch")
+        check(np.array_equal(got.cpu().numpy(), want),
+              f"glv_recode [{m}] word for word against "
+              f"glv.scalars_to_digits_glv")
+        t0 = time.perf_counter()
+        plain = kernels.glv_recode_plain(words)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        check(torch.equal(got, plain),
+              f"glv_recode [{m}] against its plain version")
+        ms = kernel_ms(lambda: kernels.glv_recode(words))
+        on_card = card_ms(lambda: kernels.glv_recode(words),
+                          "glv_recode_kernel")
+        bnd = bound(m * (32 + 2 * 33 * 4), 0)
+        print(f"glv_recode [{m}]: exact against the host and the plain "
+              f"version; kernel {ms:.4f} ms (CUDA events), {on_card:.5f} "
+              f"ms a launch on the card (profiler), bound "
+              f"{bnd['bound_ms']:.6f} ms by {bnd['bound_by']}; plain "
+              f"{plain_ms:.2f} ms; host recode {host_ms:.2f} ms, of which "
+              f"the 32-byte conversion alone {bytes_ms:.2f} ms",
+              flush=True)
+        res["glv_recode"] = dict(max_abs_err=0, ms=ms, card_ms=on_card,
+                                 plain_ms=plain_ms, host_ms=host_ms,
+                                 bytes_ms=bytes_ms, shape=[m], **bnd)
+    return res
+
+
 def _off_curve_blob(rng: random.Random) -> bytes:
     from go_curdleproofs_tpu_torch.utils import field_host as fh
 
@@ -1212,7 +1286,7 @@ def phase_kernels_device_prover(dev: torch.device) -> dict:
     for n in (1, 2, 12):
         sc = [rng.randrange(fh.R) for _ in range(n)]
         pv = curve.from_affine_host(pts[5:5 + n], device=dev)
-        dig = curve._digits(curve.scalars_to_digits(sc), dev)
+        dig = curve.recode([(sc, 0, n)], dev, bases=False)
         steps = curve.scalar_mul_steps(pv, dig)
         combine = curve.scalar_mul_device(pv, dig)
         check(curve.to_affine_host(steps) == curve.to_affine_host(combine)
@@ -2227,10 +2301,11 @@ def phase_batch_verify(dev: torch.device, card: str, crs, insts) -> dict:
 # and ELL=508
 
 # wrapper calls of one fold round and of one msm_device (every other
-# kernel 0): the table of the h points to multiply (a double, two adds,
-# the beta product), the Horner, the GLV halves' add and the fold's add
+# kernel 0): the gamma's recode (a fold round), the table of the h points
+# to multiply (a double, two adds, the beta product), the Horner, the GLV
+# halves' add and the fold's add
 FOLD_ROUND_LAUNCHES = dict(point_add=4, point_double=1, mont_mul=1,
-                           windowed_combine=1)
+                           windowed_combine=1, glv_recode=1)
 MSM_DEVICE_LAUNCHES = dict(point_add=2, point_double=1, mont_mul=1,
                            msm_select_reduce=1, windowed_combine=1)
 FOLD_KERNELS = ("mont_mul", "point_add", "point_double", "windowed_combine",
@@ -2353,8 +2428,9 @@ def check_msm_entry_points(dev: torch.device) -> None:
     from go_curdleproofs_tpu_torch.utils import field_host as fh
 
     def digits(rows):
-        return curve._digits(np.stack([curve.scalars_to_digits(r)
-                                       for r in rows]), dev)
+        return curve.recode([(r, 0, len(r)) for r in rows], dev,
+                            bases=False).reshape(len(rows), -1,
+                                                 curve.NUM_WINDOWS)
 
     rng = np.random.default_rng(0)
     pts = [fh.g1_mul(fh.G1_GEN, int(k)) for k in rng.integers(1, 2**30, 128)]
@@ -2609,6 +2685,7 @@ def main() -> int:
     card = phase_env(dev)
     phase_build()
     timings = phase_decode(dev)
+    timings.update(phase_glv_recode(dev))
     timings.update(phase_kernels(dev))
     timings.update(phase_kernels_device_prover(dev))
     verify_counts, crs, insts, gv = phase_verifier(dev, card)

@@ -342,8 +342,13 @@ def _upload(crs, Rs, Ss, Ts, Us, M, perm, k, rs_m, draws, as_,
         delta=[fh.fr_inner_product(rs_blind[:n - 2], zs_blind)],
         ones=[1] * n, k=[k], r_t=[r_t], r_u=[r_u], r_a=[r_a], r_b=[r_b],
         r_k=[r_k], r_sm=draws["r_sm"], x=x)
-    dig = lambda sc: curve._digits(curve.scalars_to_digits(sc), device)
-    dig_as = dig(as_ + [0] * (n - ell))
+    # the GLV digits of as, of perm(as) ++ rs_a' and of the sigma
+    # protocol's twelve scalars: one recode launch
+    a_sc = perm_as + rs_a_prime
+    sig_sc = [r_t, r_u, k, k, r_t, r_u, r_a, r_b, r_k, r_k, r_a, r_b]
+    dig_as, digA, dig12 = curve.recode(
+        [(as_, 0, n), (a_sc, 0, len(a_sc)), (sig_sc, 0, len(sig_sc))],
+        device, bases=False).split([2 * n, 2 * len(a_sc), 2 * len(sig_sc)])
     return _Inputs(
         ell=ell, ts=transcript_to_device(transcript, device), table=table,
         table_rs=_rs_stacked(Rs, Ss, n, device).table(),
@@ -351,9 +356,9 @@ def _upload(crs, Rs, Ss, Ts, Us, M, perm, k, rs_m, draws, as_,
         base_pts=curve.pmap(lambda t: t[:3], crs_pts),
         Gsum_Hsum=curve.pmap(lambda t: t[3:5], crs_pts),
         M_gsum=curve.from_affine_host([M, crs.gsum], device=device),
-        digA=dig(perm_as + rs_a_prime),
+        digA=digA,
         dig_rs=torch.stack([dig_as, dig_as]),
-        dig12=dig([r_t, r_u, k, k, r_t, r_u, r_a, r_b, r_k, r_k, r_a, r_b]),
+        dig12=dig12,
         m_bytes=strobe_dev.bytes_tensor(point_rows([M]), device),
         as_rows=strobe_dev.bytes_tensor(scalar_rows(as_), device),
         tu_bytes=strobe_dev.bytes_tensor(point_rows(T_prime + U_prime),

@@ -22,7 +22,7 @@ import torch
 from ..utils import field_host as fh
 from ..utils import profiling
 from ..utils.field_host import Affine
-from . import curve, fp, glv, kernels
+from . import curve, fp, glv, halflimb, kernels
 
 _M_MASK = 0b111 << 5
 _M_COMPRESSED_SMALLEST = 0b100 << 5
@@ -35,7 +35,8 @@ def _lambda_digits(n_lanes: int, device: torch.device) -> torch.Tensor:
     test must not route through the endomorphism it checks)."""
     with profiling.span("recode"):
         digits = glv.digits_nophi(glv.LAMBDA, n_lanes)
-    return curve._digits(digits, device)
+    with profiling.span("upload"):
+        return halflimb.upload(digits, torch.int32, device)
 
 
 def _subgroup_diffs(pv: curve.PointVec):

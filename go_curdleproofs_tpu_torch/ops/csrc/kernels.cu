@@ -1,6 +1,7 @@
-// The ladder, the two MSM kernels, the fused Horner step and the batched
-// point decode, written for Hopper (sm_90a), with a plain C launcher each
-// for ctypes (go_curdleproofs_tpu_torch/ops/kernels.py). The pointwise
+// The ladder, the two MSM kernels, the fused Horner step, the batched
+// point decode and the GLV recode of host scalars, written for Hopper
+// (sm_90a), with a plain C launcher each for ctypes
+// (go_curdleproofs_tpu_torch/ops/kernels.py). The pointwise
 // kernels (multiply, point add, point double) are in pointwise.cu.
 //
 // Every launcher enqueues on the stream it is given, allocates nothing, and
@@ -568,6 +569,150 @@ decode_points_kernel(const uint8_t* __restrict__ xb,
     o[curdle::NW] = (int32_t)(on_curve | ((votes & 3u) == 3u ? 2u : 0u));
 }
 
+// ---------------------------------------------------------------------------
+// glv_recode: the GLV split and signed-digit recode of the host MSMs'
+// scalars. For scalar i, 8 little-endian words below r, out rows 2i and
+// 2i + 1 are the 33 signed digits of s1 = s mod lambda and s2 = s div lambda
+// (s = s1 + lambda s2, both below 2^128), MSB window first: nibble k of
+// half + BIAS (BIAS = 0x88...88, 128 bits) less 8 for k < 32, and the
+// carry out of that sum, unbiased, as window 32. A zero scalar gives zero
+// digits.
+//
+// Replaces the host's glv.scalars_to_digits_glv on every host MSM (Python
+// divmod, to_bytes and numpy nibble work a scalar, then 264 bytes of
+// digits uploaded where 32 bytes of scalar now are). The division is
+// Barrett's by the fixed 128-bit lambda: q = (s * MU) >> 256 with
+// MU = 2^256 div lambda is at most 2 under the quotient, so s - q lambda,
+// below 3 lambda < 2^130, is exact in 5 words, and two corrections finish
+// it (ops/glv_dev.py, the plain version, does the same on half-limbs).
+// Bound: bytes, 32 in and 264 out a scalar (~50 products of 32 bits and a
+// few dozen additions a scalar are nothing at these sizes); 1,152-4,608
+// scalars move 0.3-1.4 MB, under a microsecond of HBM, so a launch sits at
+// the launch floor. One thread a scalar; a block stages its digit rows in
+// shared memory and writes them as one contiguous run, so the warps' stores
+// are whole lines.
+
+constexpr int kRecodeThreads = 128;
+constexpr int kRecodeWindows = 33;
+constexpr int kRecodeDigits = 2 * kRecodeWindows;  // s1's row, then s2's
+
+__constant__ uint32_t kLambda[4] = {0xffffffffu, 0x00000000u, 0x0001a402u,
+                                    0xac45a401u};
+__constant__ uint32_t kMu[5] = {0xf6cfee30u, 0x63f6e522u, 0xe01faaddu,
+                                0x7c6becf1u, 0x00000001u};
+
+// r >= lambda for r of 5 words.
+__device__ __forceinline__ bool at_least_lambda(const uint32_t r[5]) {
+  bool gt = false, decided = false;
+#pragma unroll
+  for (int j = 3; j >= 0; --j) {
+    gt = decided ? gt : r[j] > kLambda[j];
+    decided = decided || r[j] != kLambda[j];
+  }
+  return r[4] != 0 || gt || !decided;
+}
+
+// One Barrett correction where it applies: r -= lambda, q += 1.
+__device__ __forceinline__ void correct(uint32_t r[5], uint32_t q[4]) {
+  if (!at_least_lambda(r)) return;
+  uint64_t borrow = 0;
+#pragma unroll
+  for (int j = 0; j < 5; ++j) {
+    const uint64_t t = (uint64_t)r[j] - (j < 4 ? kLambda[j] : 0u) - borrow;
+    r[j] = (uint32_t)t;
+    borrow = t >> 63;
+  }
+  uint64_t carry = 1;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint64_t t = (uint64_t)q[j] + carry;
+    q[j] = (uint32_t)t;
+    carry = t >> 32;
+  }
+}
+
+// The 33 digits of a half below 2^128 into row[0..32], MSB window first.
+__device__ __forceinline__ void recode_half(const uint32_t h[4],
+                                            int32_t* row) {
+  uint32_t v[4];
+  uint64_t carry = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint64_t t = (uint64_t)h[j] + 0x88888888u + carry;
+    v[j] = (uint32_t)t;
+    carry = t >> 32;
+  }
+  row[0] = (int32_t)carry;
+#pragma unroll
+  for (int k = 0; k < 32; ++k)
+    row[32 - k] = (int32_t)((v[k >> 3] >> (4 * (k & 7))) & 15u) - 8;
+}
+
+__global__ void __launch_bounds__(kRecodeThreads)
+glv_recode_kernel(const uint32_t* __restrict__ words,
+                  int32_t* __restrict__ out, int m) {
+  __shared__ int32_t stage[kRecodeThreads * kRecodeDigits];
+  const int first = blockIdx.x * kRecodeThreads;
+  const int count = min(kRecodeThreads, m - first);
+  const int t = threadIdx.x;
+  if (t < count) {
+    uint32_t s[8];
+    const uint32_t* in = words + (size_t)(first + t) * 8;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) s[j] = __ldg(in + j);
+
+    // q = (s * MU) >> 256: words 8-11 of the 13-word product (word 12 is
+    // 0, the quotient being below 2^128)
+    uint32_t p[13];
+#pragma unroll
+    for (int j = 0; j < 13; ++j) p[j] = 0;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      uint64_t carry = 0;
+#pragma unroll
+      for (int j = 0; j < 5; ++j) {
+        const uint64_t t2 = (uint64_t)s[i] * kMu[j] + p[i + j] + carry;
+        p[i + j] = (uint32_t)t2;
+        carry = t2 >> 32;
+      }
+      p[i + 5] = (uint32_t)carry;
+    }
+    uint32_t q[4] = {p[8], p[9], p[10], p[11]};
+
+    // r = s - q lambda modulo 2^160
+    uint32_t ql[5] = {0, 0, 0, 0, 0};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      uint64_t carry = 0;
+#pragma unroll
+      for (int j = 0; i + j < 5 && j < 4; ++j) {
+        const uint64_t t2 = (uint64_t)q[i] * kLambda[j] + ql[i + j] + carry;
+        ql[i + j] = (uint32_t)t2;
+        carry = t2 >> 32;
+      }
+      if (i == 0) ql[4] = (uint32_t)carry;
+    }
+    uint32_t r[5];
+    uint64_t borrow = 0;
+#pragma unroll
+    for (int j = 0; j < 5; ++j) {
+      const uint64_t t2 = (uint64_t)s[j] - ql[j] - borrow;
+      r[j] = (uint32_t)t2;
+      borrow = t2 >> 63;
+    }
+    correct(r, q);
+    correct(r, q);
+
+    int32_t* row = stage + t * kRecodeDigits;
+    recode_half(r, row);
+    recode_half(q, row + kRecodeWindows);
+  }
+  __syncthreads();
+  int32_t* dst = out + (size_t)first * kRecodeDigits;
+  for (int k = t; k < count * kRecodeDigits; k += kRecodeThreads)
+    dst[k] = stage[k];
+}
+
 }  // namespace
 
 // ---------------------------------------------------------------------------
@@ -674,6 +819,15 @@ int curdle_decode_points(const void* xb, const void* wl, void* out, int n,
   const int blocks = (n + kDecodePoints - 1) / kDecodePoints;
   decode_points_kernel<<<blocks, kDecodeThreads, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)xb, (const uint8_t*)wl, (int32_t*)out, n);
+  return (int)cudaGetLastError();
+}
+
+// words: [m, 8] canonical scalars, out: [2m, 33] digits.
+int curdle_glv_recode(const void* words, void* out, int m, void* stream) {
+  if (m <= 0) return (int)cudaSuccess;
+  const int blocks = (m + kRecodeThreads - 1) / kRecodeThreads;
+  glv_recode_kernel<<<blocks, kRecodeThreads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)words, (int32_t*)out, m);
   return (int)cudaGetLastError();
 }
 

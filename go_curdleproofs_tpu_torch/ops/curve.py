@@ -28,14 +28,22 @@ over all (job, base row) terms, one Horner launch, one fetch) behind the
 scalar-side folding view `FoldedBases`, plus `msm_batch` and
 `batch_scalar_mul`.
 
+Every host-facing MSM, `batch_scalar_mul` and the folds' gammas recode
+their host scalars through `recode`: the host writes each scalar (mod r)
+as 32 little-endian bytes, pad lanes as zero bytes, uploads them once,
+and the `glv_recode` kernel (ops/kernels.py) splits and recodes all of a
+call's rows in one launch, on the CPU its plain version.
+
 Spans (utils/profiling.py): `msm` around each host-facing MSM and
-`batch_scalar_mul`, with the children `recode` (host GLV recoding and the
-stacking of its digits), `upload` (`from_affine_host`, `_digits`),
-`fetch` (the blocking copy back) and `convert` (host normalisation of what
-came back), and the counters `msm.terms` (bases with a non-zero scalar)
-and `msm.lanes` (base lanes launched: rows x padded width); `expand`
-around `FoldedBases`' scalar-side folding and `fold` around
-`StackedVec.fold`.
+`batch_scalar_mul`, with the children `recode` (the host's preparation
+of a call's scalars, with its counters `recode.scalars`, the scalars
+recoded, pad lanes included, and `recode.on_card`, those the kernel
+recoded: all of them on a CUDA device, none on the CPU), `upload`
+(`from_affine_host`, and the scalars' words after `recode`), `fetch`
+(the blocking copy back) and `convert` (host normalisation of what came
+back), and the counters `msm.terms` (bases with a non-zero scalar) and
+`msm.lanes` (base lanes launched: rows x padded width); `expand` around
+`FoldedBases`' scalar-side folding and `fold` around `StackedVec.fold`.
 """
 
 from __future__ import annotations
@@ -48,7 +56,7 @@ import torch
 from ..utils import field_host as fh
 from ..utils import profiling
 from ..utils.field_host import Affine
-from . import fp, glv, halflimb, kernels
+from . import fp, fr, glv, halflimb, kernels
 
 B3 = 12                         # 3*b for y^2 = x^3 + 4
 WINDOW_BITS = glv.WINDOW_BITS
@@ -156,29 +164,54 @@ def to_affine_host_xy(p: PointVec) -> List[Affine]:
         return [compress_dev.decode_xy_host(r) for r in rows.numpy()]
 
 
-# -- GLV tables, select and reduce ----------------------------------------------
+# -- GLV recoding of host scalars ------------------------------------------------
 
-def scalars_to_digits(scalars: Sequence[int]) -> np.ndarray:
-    """[n] ints (any sign or size) -> [2n, NUM_WINDOWS] int32 signed GLV
-    digits, MSB window first, lanes interleaved."""
-    return glv.scalars_to_digits_glv([int(s) % fh.R for s in scalars])
+ScalarRow = Tuple[Sequence[int], int, int]    # (scalars, offset, width)
 
 
-@profiling.traced("upload")
-def _digits(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    return halflimb.upload(np.ascontiguousarray(arr, dtype=np.int32),
-                           torch.int32, device)
+def _scalar_words(rows: Sequence[ScalarRow]) -> np.ndarray:
+    """[lanes, 8] int32: row after row, `width` lanes each, the scalars
+    (ints of any sign or size, taken mod r) as little-endian words from
+    `offset` on, zero words in the other lanes."""
+    r = fh.R
+    parts = []
+    for scalars, offset, width in rows:
+        parts.append(bytes(32 * offset))
+        try:        # Python ints: no int() call a scalar (a third of it)
+            parts.extend([(s % r).to_bytes(32, "little") for s in scalars])
+        except OverflowError:           # numpy or torch integers
+            parts.extend([(int(s) % r).to_bytes(32, "little")
+                          for s in scalars])
+        parts.append(bytes(32 * (width - offset - len(scalars))))
+    return np.frombuffer(bytearray().join(parts),
+                         np.int32).reshape(-1, fr.NWORDS)
 
 
-def _count_bases(digits: np.ndarray) -> None:
-    """The counters `msm.lanes` and `msm.terms` of an MSM's host digits
-    [..., 2n, W]: its base lanes, and those whose scalar is not zero."""
-    if profiling.recording():
-        per_base = digits.reshape(-1, 2 * NUM_WINDOWS)
-        profiling.count("msm.lanes", per_base.shape[0])
+def recode(rows: Sequence[ScalarRow], device: torch.device, *,
+           bases: bool = True) -> torch.Tensor:
+    """The GLV digits of rows of host scalars (`_scalar_words`'s layout):
+    one upload of their 32-byte words and one `glv_recode` launch ->
+    [2 * lanes, NUM_WINDOWS] int32 on `device`, lane i's s1 and s2 in rows
+    2i and 2i + 1, MSB window first. The `recode` span holds the host's
+    part, the words; the kernel on a CUDA device recodes them
+    (`recode.on_card`), its plain version elsewhere. `bases`: the lanes
+    are an MSM's bases, counted in `msm.lanes` and `msm.terms` (those
+    whose scalar is not zero mod r)."""
+    with profiling.span("recode"):
+        words = _scalar_words(rows)
+        profiling.count("recode.scalars", len(words))
+        profiling.count("recode.on_card", len(words) if torch.device(
+            device).type == "cuda" else 0)
+    with profiling.span("upload"):
+        on_dev = halflimb.upload(words, torch.int32, device)
+    if bases and profiling.recording():
+        profiling.count("msm.lanes", len(words))
         profiling.count("msm.terms",
-                        int(np.count_nonzero(per_base.any(axis=1))))
+                        int(np.count_nonzero(words.any(axis=1))))
+    return kernels.glv_recode(on_dev)
 
+
+# -- GLV tables, select and reduce ----------------------------------------------
 
 def _beta_elem(device: torch.device) -> torch.Tensor:
     """The GLV cube root of unity beta (phi(x, y) = (beta*x, y))."""
@@ -414,13 +447,11 @@ def fold_device(pv: PointVec, digits: torch.Tensor, h: int) -> PointVec:
 
 def _gamma_digits(gammas: Sequence[int], h: int,
                   device: torch.device) -> torch.Tensor:
-    """[k] gammas -> [k, 2h, W] GLV digits: each gamma recoded once on the
-    host, uploaded as [2, W] and repeated over the h lanes on the device."""
-    with profiling.span("recode"):
-        one = np.stack([scalars_to_digits([g]) for g in gammas])
-    one = _digits(one, device)
-    return one[:, None].expand(-1, h, -1, -1).reshape(
-        len(gammas), 2 * h, NUM_WINDOWS)
+    """[k] gammas -> [k, 2h, W] GLV digits: the k gammas recoded in one
+    launch, each [2, W] repeated over the h lanes on the device."""
+    one = recode([([g], 0, 1) for g in gammas], device, bases=False)
+    return one.reshape(len(gammas), 1, 2, NUM_WINDOWS).expand(
+        -1, h, -1, -1).reshape(len(gammas), 2 * h, NUM_WINDOWS)
 
 
 # -- host-facing APIs ------------------------------------------------------------
@@ -473,24 +504,20 @@ class StackedVec:
         term is one MSM job over its base row: ONE wide-phase launch over
         all terms, ONE Horner launch, ONE fetch, then the host adds each
         term's point to its owner."""
-        digit_rows, rows_idx, owners = [], [], []
-        with profiling.span("recode"):
-            for j, terms in enumerate(jobs):
-                for (row, scalars, offset) in terms:
-                    if offset < 0 or offset + len(scalars) > self.width:
-                        raise ValueError("msm_many: scalars run past the row")
-                    sc = [0] * self.width
-                    sc[offset:offset + len(scalars)] = scalars
-                    digit_rows.append(scalars_to_digits(sc))
-                    rows_idx.append(row)
-                    owners.append(j)
-            digits = np.stack(digit_rows) if owners else None
+        scalar_rows, rows_idx, owners = [], [], []
+        for j, terms in enumerate(jobs):
+            for (row, scalars, offset) in terms:
+                if offset < 0 or offset + len(scalars) > self.width:
+                    raise ValueError("msm_many: scalars run past the row")
+                scalar_rows.append((scalars, offset, self.width))
+                rows_idx.append(row)
+                owners.append(j)
         res: List[Affine] = [None] * len(jobs)
         if not owners:
             return res
-        _count_bases(digits)
-        out = msm_rows_points_from_table(
-            self.table(), _digits(digits, self.pv.x.device), rows_idx)
+        digits = recode(scalar_rows, self.pv.x.device).reshape(
+            len(owners), 2 * self.width, NUM_WINDOWS)
+        out = msm_rows_points_from_table(self.table(), digits, rows_idx)
         for j, pt in zip(owners, to_affine_host(out)):
             res[j] = fh.g1_add(res[j], pt)
         return res
@@ -601,12 +628,7 @@ class DeviceVec:
         fetch of one point."""
         if offset < 0 or offset + len(scalars) > self.width:
             raise ValueError("DeviceVec.msm: scalars run past the vector")
-        sc = [0] * self.width
-        sc[offset:offset + len(scalars)] = scalars
-        with profiling.span("recode"):
-            digits = scalars_to_digits(sc)
-        _count_bases(digits)
-        digits = _digits(digits, self.pv.x.device)
+        digits = recode([(scalars, offset, self.width)], self.pv.x.device)
         return to_affine_host_single(msm_device(self.pv, digits))
 
     def fold(self, gamma: int) -> "DeviceVec":
@@ -662,22 +684,31 @@ def _sum_rows(sums: PointVec) -> PointVec:
     return sums
 
 
-def _dynamic_windows(points: Sequence[Affine], scalars: Sequence[int],
-                     device: torch.device) -> PointVec:
-    """[1, W] window sums of <scalars, points> over a fresh table: each
-    row's sums in one wide-phase launch, added pointwise."""
+def _dynamic_rows(scalars: Sequence[int], n: int) -> List[ScalarRow]:
+    """The scalar rows of an n-base MSM's fresh table (`_dynamic_layout`)."""
+    k, w = _dynamic_layout(n)
+    sc = list(scalars)
+    return [(sc[i * w:(i + 1) * w], 0, w) for i in range(k)]
+
+
+def _dynamic_sums(points: Sequence[Affine], digits: torch.Tensor,
+                  device: torch.device) -> PointVec:
+    """[1, W] window sums of the points over a fresh table, their digits
+    recoded from `_dynamic_rows`: each row's sums in one wide-phase launch,
+    added pointwise."""
     k, w = _dynamic_layout(len(points))
     pts = list(points) + [None] * (k * w - len(points))
-    sc = list(scalars) + [0] * (k * w - len(scalars))
     sv = StackedVec.from_affine([pts[i * w:(i + 1) * w] for i in range(k)],
                                 device=device, pad_to=w)
-    with profiling.span("recode"):
-        digits = np.stack([scalars_to_digits(sc[i * w:(i + 1) * w])
-                           for i in range(k)])                 # [k, 2w, W]
-    _count_bases(digits)
-    digits = _digits(digits, device)
-    return _sum_rows(msm_rows_windows_from_table(sv.table(), digits,
-                                                 list(range(k))))
+    return _sum_rows(msm_rows_windows_from_table(
+        sv.table(), digits.reshape(k, 2 * w, NUM_WINDOWS), list(range(k))))
+
+
+def _dynamic_windows(points: Sequence[Affine], scalars: Sequence[int],
+                     device: torch.device) -> PointVec:
+    """[1, W] window sums of <scalars, points> over a fresh table."""
+    digits = recode(_dynamic_rows(scalars, len(points)), device)
+    return _dynamic_sums(points, digits, device)
 
 
 @profiling.traced("msm")
@@ -697,18 +728,18 @@ def msm_with_static(static_sv: StackedVec, static_scalars: Sequence[int],
                     scalars: Sequence[int]) -> Affine:
     """<static_scalars, static_sv row 0> + <scalars, points>: the static
     row's window sums off its cached table, the dynamic points' off a fresh
-    one, added pointwise, one Horner, one fetch."""
+    one, added pointwise, one Horner, one fetch. The static row's scalars
+    and the dynamic ones are recoded in one launch."""
     if len(points) != len(scalars):
         raise ValueError("msm_with_static: len(points) != len(scalars)")
     device = static_sv.pv.x.device
-    st = list(static_scalars) + [0] * (static_sv.width - len(static_scalars))
-    with profiling.span("recode"):
-        st_dig = scalars_to_digits(st)[None]
-    _count_bases(st_dig)
-    st_dig = _digits(st_dig, device)
-    acc = msm_rows_windows_from_table(static_sv.table(), st_dig, [0])
+    n2 = 2 * static_sv.width
+    dyn = _dynamic_rows(scalars, len(points)) if points else []
+    digits = recode([(static_scalars, 0, static_sv.width)] + dyn, device)
+    acc = msm_rows_windows_from_table(
+        static_sv.table(), digits[:n2].reshape(1, n2, NUM_WINDOWS), [0])
     if points:
-        acc = add(acc, _dynamic_windows(points, scalars, device))
+        acc = add(acc, _dynamic_sums(points, digits[n2:], device))
     return to_affine_host(horner(acc))[0]
 
 
@@ -723,9 +754,5 @@ def batch_scalar_mul(points: Sequence[Affine], scalars: Sequence[int], *,
     n = _pad_pow2(len(points))
     pv = from_affine_host(list(points) + [None] * (n - len(points)),
                           device=device)
-    sc = list(scalars) + [0] * (n - len(scalars))
-    with profiling.span("recode"):
-        digits = scalars_to_digits(sc)
-    _count_bases(digits)
-    out = scalar_mul_device(pv, _digits(digits, device))
+    out = scalar_mul_device(pv, recode([(scalars, 0, n)], device))
     return to_affine_host_xy(out)[: len(points)]

@@ -12,7 +12,9 @@ ops/glv.py:
 
 All of it is exact integer work on 16-bit half-limbs in int64 with the
 loop-free carries of ops/halflimb.py, equal digit for digit to the host
-`glv.scalars_to_digits_glv`.
+`glv.scalars_to_digits_glv`. `recode_words` starts from canonical words,
+as the host MSMs upload their scalars: it is the plain version of the
+`glv_recode` kernel.
 """
 
 from __future__ import annotations
@@ -54,8 +56,15 @@ def glv_split_digits(x: torch.Tensor) -> torch.Tensor:
     """[n, 8] scalar-field elements -> [2n, NUM_WINDOWS] int32 interleaved
     signed GLV digits (row 2i = s1_i for the P lanes, 2i+1 = s2_i for the
     phi lanes), MSB window first."""
-    dev = x.device
-    s = halflimb.split(fr.canonical(x))                         # [n, 16]
+    return recode_words(fr.canonical(x))
+
+
+def recode_words(words: torch.Tensor) -> torch.Tensor:
+    """`glv_split_digits` of canonical values: [n, 8] int32 little-endian
+    words of scalars below r -> [2n, NUM_WINDOWS] int32 digits. The plain
+    version of the `glv_recode` kernel (ops/kernels.py)."""
+    dev = words.device
+    s = halflimb.split(words)                                   # [n, 16]
 
     # Barrett: q_hat = (s * MU) >> 256, at most 2 under the true quotient
     prod = halflimb.product_cols(

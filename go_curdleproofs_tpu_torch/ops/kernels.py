@@ -2,8 +2,8 @@
 
 Each kernel (CUDA C++ for sm_90a; ops/csrc/pointwise.cu holds mont_mul,
 point_add, point_double, fr_mont_mul and fr_pow_fixed, ops/csrc/kernels.cu
-holds pow_fixed, windowed_combine, msm_select_reduce, point_x16_add and
-decode_points;
+holds pow_fixed, windowed_combine, msm_select_reduce, point_x16_add,
+decode_points and glv_recode;
 mont_mul runs on the team product of ops/csrc/fp_team.cuh;
 point_add, point_double and the last four run on the cooperative point
 operations of ops/csrc/point_coop.cuh; ops/csrc/transcript.cu holds
@@ -46,7 +46,7 @@ import torch
 
 from ..utils.field_host import B_COEFF, P
 from ..utils.field_host import R as FR_MODULUS
-from . import curve, fp, fr, glv, halflimb, keccak_dev
+from . import curve, fp, fr, glv, glv_dev, halflimb, keccak_dev
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _CU_SOURCES = ("kernels.cu", "pointwise.cu", "transcript.cu")  # a library each
@@ -63,6 +63,7 @@ KERNEL_SOURCE = {"mont_mul": "pointwise.cu", "point_add": "pointwise.cu",
                  "msm_select_reduce": "kernels.cu",
                  "point_x16_add": "kernels.cu",
                  "decode_points": "kernels.cu",
+                 "glv_recode": "kernels.cu",
                  "fr_pow_fixed": "pointwise.cu",
                  "fr_mont_mul": "pointwise.cu",
                  "strobe_absorb_stream": "transcript.cu",
@@ -181,7 +182,8 @@ def _load() -> SimpleNamespace:
                 mont_mul=pointwise.curdle_mont_mul,
                 point_add=pointwise.curdle_point_add,
                 point_double=pointwise.curdle_point_double,
-                decode_points=main.curdle_decode_points)
+                decode_points=main.curdle_decode_points,
+                glv_recode=main.curdle_glv_recode)
             fns.pow_fixed.argtypes = [
                 vp, vp, i32, ctypes.POINTER(ctypes.c_uint32), i32, i32, vp]
             fns.windowed_combine.argtypes = [vp] * 6 + [i32, i32, vp]
@@ -192,6 +194,7 @@ def _load() -> SimpleNamespace:
             fns.point_x16_add.argtypes = [vp] * 9 + [i32, vp]
             fns.point_x16_add_select.argtypes = [vp] * 10 + [i32] * 3 + [vp]
             fns.decode_points.argtypes = [vp, vp, vp, i32, vp]
+            fns.glv_recode.argtypes = [vp, vp, i32, vp]
             fns.fr_mont_mul.argtypes = [vp, vp, vp, i64, i32, i32, vp]
             fns.fr_pow_fixed.argtypes = [
                 vp, vp, i64, ctypes.POINTER(ctypes.c_uint32), i32, vp]
@@ -659,6 +662,36 @@ def decode_points(xb: torch.Tensor, wl: torch.Tensor) -> torch.Tensor:
                                n, _stream(xb.device))
     _check(rc, "decode_points")
     launches["decode_points"] += 1
+    return out
+
+
+# -- the GLV recode of host scalars -----------------------------------------------
+
+glv_recode_plain = glv_dev.recode_words
+
+
+def glv_recode(words: torch.Tensor) -> torch.Tensor:
+    """The GLV split and signed-digit recode of m scalars in one launch.
+    words: [m, 8] int32, the little-endian words of canonical scalars
+    (below r; zero words for padding lanes). Returns [2m, 33] int32 in the
+    layout of glv.scalars_to_digits_glv: row 2i the digits of s1 = s mod
+    lambda, row 2i + 1 those of s2 = s div lambda, MSB window first,
+    signed in [-8, 7] with the last window's carry unbiased; a zero scalar
+    gives zero rows."""
+    if words.ndim != 2 or words.shape[1] != fr.NWORDS:
+        raise ValueError(f"glv_recode: scalars must be [m, {fr.NWORDS}] "
+                         f"words, got {tuple(words.shape)}")
+    if _route(words) == "cpu":
+        return glv_recode_plain(words)
+    m = words.shape[0]
+    out = torch.empty((2 * m, glv.NUM_WINDOWS), dtype=torch.int32,
+                      device=words.device)
+    lib = _load()
+    with torch.cuda.device(words.device):
+        rc = lib.glv_recode(words.data_ptr(), out.data_ptr(), m,
+                            _stream(words.device))
+    _check(rc, "glv_recode")
+    launches["glv_recode"] += 1
     return out
 
 

@@ -160,7 +160,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("time_kernels: CUDA is not available", file=sys.stderr)
         return 2
-    from go_curdleproofs_tpu_torch.ops import curve, fp, kernels
+    from go_curdleproofs_tpu_torch.ops import curve, fp, glv, kernels
     from go_curdleproofs_tpu_torch.utils import field_host as fh
 
     dev = torch.device("cuda", 0)
@@ -310,8 +310,8 @@ def main() -> int:
         print(line, flush=True)
     for n in (1, 2, 12):
         pv = curve.from_affine_host(pts[:n], device=dev)
-        dg = curve._digits(curve.scalars_to_digits(
-            [rng.randrange(fh.R) for _ in range(n)]), dev)
+        dg = torch.from_numpy(glv.scalars_to_digits_glv(
+            [rng.randrange(fh.R) for _ in range(n)])).to(dev)
         cells = [format(kernel_ms(lambda: f(pv, dg), 5), ".3f")
                  for f in (curve.scalar_mul_steps, curve.scalar_mul_device)]
         print(f"scalar multiplication of {n} point(s): window loop "

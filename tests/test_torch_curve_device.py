@@ -13,7 +13,7 @@ import torch
 
 from go_curdleproofs_tpu.ops import curve as jcurve
 from go_curdleproofs_tpu.utils import field_host as fh
-from go_curdleproofs_tpu_torch.ops import curve
+from go_curdleproofs_tpu_torch.ops import curve, glv
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -43,7 +43,7 @@ def _jax(flat, shape):
 def _digits(rows):
     """[..., n] scalar rows -> (port digits tensor, numpy digits) [..., 2n,
     W]; both packages recode alike."""
-    arr = np.stack([curve.scalars_to_digits(r) for r in rows])
+    arr = np.stack([glv.scalars_to_digits_glv(r) for r in rows])
     assert np.array_equal(arr, np.stack([jcurve.scalars_to_digits(r)
                                          for r in rows]))
     return torch.from_numpy(arr), arr
@@ -150,8 +150,12 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_cuda_msm_entry_points_match_oracle(cuda_device):
-    """On the card (kernels B1, B2, B3, B5, B6): every entry point at
-    k=3, n=64, m=2 against the oracle, and a launch of each counted."""
+    """On the card (kernels B1, B2, B3, B5, B6 and glv_recode): every
+    entry point at k=3, n=64, m=2 against the oracle, and a launch of each
+    counted; the digits recoded by the glv_recode kernel, equal to the
+    host's; each host entry point (msm_many, DeviceVec.msm and its fold,
+    msm, msm_with_static, batch_scalar_mul) recodes its scalars in one
+    glv_recode launch."""
     from go_curdleproofs_tpu_torch.ops import kernels
 
     rng = np.random.default_rng(64)
@@ -160,7 +164,11 @@ def test_cuda_msm_entry_points_match_oracle(cuda_device):
     pv = curve.pmap(lambda t: t.to(cuda_device), _port(sum(rows, []), (k, n)))
     scs = [[[_scalar(rng) for _ in range(n)] for _ in range(k)]
            for _ in range(m)]
-    dig = _digits(sum(scs, []))[0].to(cuda_device)
+    kernels.reset_launches()
+    dig = curve.recode([(r, 0, n) for r in sum(scs, [])], cuda_device,
+                       bases=False).reshape(m * k, 2 * n, W)
+    assert kernels.launches["glv_recode"] == 1
+    assert torch.equal(dig.cpu(), _digits(sum(scs, []))[0])
     want = [fh.g1_msm(rows[b], scs[j][b]) for j in range(m) for b in range(k)]
     kernels.reset_launches()
     out = curve.msm_stacked_device(pv, dig.reshape(m, k, 2 * n, W))
@@ -173,3 +181,35 @@ def test_cuda_msm_entry_points_match_oracle(cuda_device):
             for b in range(k)] == want[:k]
     assert curve.to_affine_host(
         curve.msm_rows_device(pv, dig[k:k + 2], (0, 1))) == want[k:k + 2]
+
+    # the host entry points, each one glv_recode launch
+    flat = sum(rows, [])
+    sc = [_scalar(rng) for _ in range(n)]
+    sv = curve.StackedVec.from_affine(rows, device=cuda_device)
+    dv = curve.DeviceVec.from_affine(rows[1], device=cuda_device)
+    gamma = _scalar(rng)
+    long_sc = scs[0][0] + scs[0][1] + sc[:22]
+    for what, run, expect in (
+            ("msm_many", lambda: sv.msm_many([[(0, sc[:5], 3)],
+                                              [(2, sc, 0), (1, sc[:9], 1)]]),
+             [fh.g1_msm(rows[0][3:8], sc[:5]),
+              fh.g1_add(fh.g1_msm(rows[2], sc), fh.g1_msm(rows[1][1:10],
+                                                          sc[:9]))]),
+            ("DeviceVec.msm", lambda: dv.msm(sc[:7], offset=2),
+             fh.g1_msm(rows[1][2:9], sc[:7])),
+            ("msm", lambda: curve.msm(flat[:150], long_sc,
+                                      device=cuda_device),
+             fh.g1_msm(flat[:150], long_sc)),
+            ("msm_with_static", lambda: curve.msm_with_static(
+                sv, sc[:40], flat[70:100], scs[1][2][:30]),
+             fh.g1_add(fh.g1_msm(rows[0][:40], sc[:40]),
+                       fh.g1_msm(flat[70:100], scs[1][2][:30]))),
+            ("batch_scalar_mul", lambda: curve.batch_scalar_mul(
+                flat[:5], sc[:5], device=cuda_device),
+             [fh.g1_mul(p, s) for p, s in zip(flat[:5], sc[:5])]),
+            ("DeviceVec.fold", lambda: dv.fold(gamma).to_affine(),
+             [fh.g1_add(rows[1][i], fh.g1_mul(rows[1][i + n // 2], gamma))
+              for i in range(n // 2)])):
+        kernels.reset_launches()
+        assert run() == expect, what
+        assert kernels.launches["glv_recode"] == 1, what

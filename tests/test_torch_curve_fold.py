@@ -9,7 +9,7 @@ import torch
 
 from go_curdleproofs_tpu.ops import curve as jcurve
 from go_curdleproofs_tpu.utils import field_host as fh
-from go_curdleproofs_tpu_torch.ops import curve, kernels
+from go_curdleproofs_tpu_torch.ops import curve, glv, kernels
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -64,7 +64,7 @@ def test_fold_device_takes_the_jax_digits(n_valid):
     pts = _pts(rng, n_valid, holes=(5,))
     gamma = _scalar(rng)
     h = n_valid // 2
-    tiled = np.tile(curve.scalars_to_digits([gamma]), (8, 1))
+    tiled = np.tile(glv.scalars_to_digits_glv([gamma]), (8, 1))
     got = curve.fold_device(curve.DeviceVec.from_affine(pts, device=CPU).pv,
                             torch.from_numpy(tiled), h)
     want = jcurve.DeviceVec.from_affine(pts).fold(gamma)

@@ -196,7 +196,7 @@ def test_plain_versions_call_no_wrapper(monkeypatch):
     pbs = torch.tensor([9], dtype=torch.uint8)
     xb, wl, _, _ = _decode_case(rng, 3)
     assert set(kernels.KERNEL_NAMES) == set(kernels.launches) \
-        and len(kernels.KERNEL_NAMES) == 12
+        and len(kernels.KERNEL_NAMES) == 13
     for name in kernels.KERNEL_NAMES:
         monkeypatch.setattr(kernels, name, boom)
     kernels.mont_mul_plain(x, x)
@@ -214,6 +214,7 @@ def test_plain_versions_call_no_wrapper(monkeypatch):
     kernels.strobe_absorb_stream_plain(state, stream, 20, pbs, final_pb=3)
     kernels.strobe_challenge32_plain(state, b"label", 20, 7)
     kernels.decode_points_plain(xb, wl)
+    kernels.glv_recode_plain(s)
 
 
 def test_wrappers_check_inputs_and_never_fall_back():
@@ -285,7 +286,7 @@ def test_scalar_mul_steps_equals_scalar_mul_device_and_oracle():
     sc = [0, fh.R - 1] + [int.from_bytes(rng.bytes(32), "little") % fh.R
                           for _ in range(2)]
     pv = curve.from_affine_host(pts, device=CPU)
-    dig = torch.from_numpy(curve.scalars_to_digits(sc))
+    dig = torch.from_numpy(glv.scalars_to_digits_glv(sc))
     steps = curve.to_affine_host(curve.scalar_mul_steps(pv, dig))
     assert steps == curve.to_affine_host(curve.scalar_mul_device(pv, dig))
     assert steps == [fh.g1_mul(p, s) for p, s in zip(pts, sc)]
@@ -383,7 +384,7 @@ def test_scalar_mul_steps_matches_both_packages_and_oracle(scalars):
           "random": [int.from_bytes(rng.bytes(32), "little") % fh.R
                      for _ in range(4)]}[scalars]
     pv = curve.from_affine_host(pts, device=CPU)
-    dig = curve.scalars_to_digits(sc)
+    dig = glv.scalars_to_digits_glv(sc)
     steps = curve.to_affine_host(
         curve.scalar_mul_steps(pv, torch.from_numpy(dig)))
     assert steps == curve.to_affine_host(
@@ -399,7 +400,7 @@ def test_scalar_mul_steps_is_one_wrapper_call_a_window(monkeypatch):
     the entry's plain version does the one table_select of its window)."""
     rng = np.random.default_rng(55)
     pv = curve.from_affine_host(_rand_points(rng, 2), device=CPU)
-    dig = torch.from_numpy(curve.scalars_to_digits([5, fh.R - 7]))
+    dig = torch.from_numpy(glv.scalars_to_digits_glv([5, fh.R - 7]))
     calls = []
     real = kernels.point_x16_add_select
 
@@ -940,7 +941,7 @@ def test_cuda_point_x16_add_select_and_steps(cuda_device):
     sc = [0, 1, fh.R - 1, 12345]
     pv = curve.from_affine_host([p for p in pts if p][:4],
                                 device=cuda_device)
-    dig = torch.from_numpy(curve.scalars_to_digits(sc)).to(cuda_device)
+    dig = torch.from_numpy(glv.scalars_to_digits_glv(sc)).to(cuda_device)
     kernels.reset_launches()
     steps = curve.scalar_mul_steps(pv, dig)
     assert kernels.launches["point_x16_add"] == W

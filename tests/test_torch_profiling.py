@@ -288,11 +288,16 @@ def test_spans_at_the_curve_call_sites(spans):
     counts = {}
     for r in spans.records():
         if r.counts:
-            assert r.name == "msm"
+            assert r.name in ("msm", "recode")
             for k, v in r.counts.items():
-                counts[k] = counts.get(k, 0) + v
-    # 6 of 8 lanes, then two rows of width 8 holding 2 and 1 scalars
-    assert counts == {"msm.lanes": 8 + 16, "msm.terms": 6 + 3}
+                counts[r.name, k] = counts.get((r.name, k), 0) + v
+    # 6 of 8 lanes, then two rows of width 8 holding 2 and 1 scalars; the
+    # scalars recoded, pad lanes and the fold's two gammas included, none
+    # of them on a card
+    assert counts == {("msm", "msm.lanes"): 8 + 16,
+                      ("msm", "msm.terms"): 6 + 3,
+                      ("recode", "recode.scalars"): 8 + 16 + 2,
+                      ("recode", "recode.on_card"): 0}
 
 
 def _span_names(tree):

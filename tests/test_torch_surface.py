@@ -39,6 +39,10 @@ NOT_PORTED = {
                            "is ops/kernels.py's fr_pow_fixed",
     **_left(_TUNNEL, "ops/curve.py", "kernel_scope", "build_table_device"),
     "ops/curve.py:pmap_coords": "renamed: the port's curve.pmap",
+    "ops/curve.py:scalars_to_digits": "the host MSMs ship 32-byte scalars "
+                                      "and recode them in curve.recode "
+                                      "(the glv_recode kernel); the host "
+                                      "recode is glv.scalars_to_digits_glv",
     **_left(_LIMB, "ops/fp.py", "FOLD", "RED", "NLIMBS", "Fp", "field",
             "carry_to", "canonical_digits", "prepare_fetch",
             "ints_from_fetched"),
