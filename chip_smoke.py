@@ -16,7 +16,8 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
   3. decode_points at 1, 17, 248, 585, 2,141 and 18,720 points (subgroup
      points of both signs, x off the curve, points on the curve outside the
      subgroup, the order-3 point) against its plain version word for word
-     and flag for flag, and its flags and y against the host; timed at 585
+     and flag for flag (y, flags and the points' Montgomery planes), and
+     its flags, y and points against the host; timed at 585
      and 2,141 points by CUDA events and the profiler beside the bound of
      benchmark/core/roofline.py; one batch_decompress on the card is one
      decode_points launch, no other kernel and one device-to-host copy, and
@@ -50,7 +51,12 @@ Drives the port (go_curdleproofs_tpu_torch) on the card:
   4. verifier path: ELL=124 CRS, both proofs of
      tests/fixture_whisk_ell124.json verified with launch counts, tampered
      proofs rejected, the golden ell=12 Whisk proof and tracker proof
-     accepted, cold/warm verify times;
+     accepted, cold/warm verify times; the final MSM of an honest verify
+     and of one beside another proof's post-trackers (585 decoded points;
+     at ELL=508 in phase 8, 2,141) read from the pool's device points and
+     from every base resolved and uploaded: the same point and verdict,
+     `msm.resident` every decoded point, `msm.uploaded` the host's bases,
+     both routes timed;
   5. prover path: the golden ell=12 Whisk proof, the golden ell=12 and
      ell=60 shuffle proofs and the golden tracker proof regenerated from
      their seeds and compared byte for byte with tests/golden_vectors.json;
@@ -870,7 +876,7 @@ def phase_decode(dev: torch.device) -> dict:
     kernel and one device-to-host copy. Runs first: the card's profiler
     stops reporting kernels after a few thousand in a process."""
     from benchmark.core import roofline
-    from go_curdleproofs_tpu_torch.ops import codec_batch, kernels
+    from go_curdleproofs_tpu_torch.ops import codec_batch, curve, kernels
     from go_curdleproofs_tpu_torch.time_kernels import card_ms
     from go_curdleproofs_tpu_torch.utils import codec
     from torch.profiler import ProfilerActivity, profile
@@ -881,15 +887,16 @@ def phase_decode(dev: torch.device) -> dict:
         xb, wl, flags, ys = decode_inputs(n, rng)
         xb_d, wl_d = xb.to(dev), wl.to(dev)
         kernels.reset_launches()
-        got = kernels.decode_points(xb_d, wl_d)
+        got, got_pts = kernels.decode_points(xb_d, wl_d)
         torch.cuda.synchronize()
         check(kernels.launches["decode_points"] == 1, "one decode launch")
         t0 = time.perf_counter()
-        want = kernels.decode_points_plain(xb_d, wl_d)
+        want, want_pts = kernels.decode_points_plain(xb_d, wl_d)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t0) * 1e3
-        check(torch.equal(got, want),
-              f"decode_points [{n}] word for word against the plain version")
+        check(torch.equal(got, want) and torch.equal(got_pts, want_pts),
+              f"decode_points [{n}] word for word against the plain version "
+              f"(y and flags, and the points' planes)")
         host = got.cpu().numpy()
         for i, (f, y) in enumerate(zip(flags, ys)):
             check(f is None or int(host[i, 12]) == f,
@@ -900,6 +907,11 @@ def phase_decode(dev: torch.device) -> dict:
             check(y is None or int.from_bytes(host[i, :12].tobytes(),
                                               "little") == y,
                   f"decode_points [{n}] point {i}: y")
+        on = [i for i, y in enumerate(ys) if y is not None][:256]
+        xs = [int.from_bytes(bytes(xb[i].tolist()), "big") for i in on]
+        check(curve.to_affine_host(curve.PointVec(*got_pts[:, on]))
+              == [(x, ys[i]) for x, i in zip(xs, on)],
+              f"decode_points [{n}]: the points' planes are (x : y : 1)")
         line = (f"decode_points [{n}]: exact against the plain version and "
                 f"the host ({sum(f is None for f in flags)} off the curve, "
                 f"{sum(f == 1 for f in flags)} outside the subgroup); plain "
@@ -1513,6 +1525,75 @@ def _golden_whisk_pre(w):
     return pre
 
 
+def check_resident_msm(dev: torch.device, crs, pre, post, proof: bytes,
+                       verdict: bool, what: str) -> None:
+    """The final MSM of one Whisk verify whose every earlier check passes,
+    by both routes on the card: the pool's decoded points read by row where
+    the decode left them (the verifier's route) and every base resolved to
+    a host Affine and uploaded (the route before it). The same point, the
+    verdict `verdict`, `msm.resident` the pool's LazyPoint bases (every
+    decoded point) and `msm.uploaded` the host's; each route's time, host
+    clock synchronised, median of 5."""
+    from go_curdleproofs_tpu_torch.models import curdleproof, whisk
+    from go_curdleproofs_tpu_torch.models.msm_accumulator import \
+        MsmAccumulator
+    from go_curdleproofs_tpu_torch.ops import curve
+    from go_curdleproofs_tpu_torch.utils import codec, profiling
+    from go_curdleproofs_tpu_torch.utils.rand import Rand
+
+    pool = codec.DecodePool(dev)
+    wp = whisk.WhiskShuffleProof.from_bytes(proof, pool)
+    Rs, Ss, Ts, Us = whisk._pool_tracker_sets(pre, post, pool)
+    acc = MsmAccumulator(device=dev,
+                         static_bases=curdleproof._gh_static(crs, dev))
+    check(curdleproof.verify(wp.proof, crs, Rs, Ss, Ts, Us, wp.m, Rand(7),
+                             device=dev, accumulator=acc),
+          f"{what}: every check before the final MSM passes")
+    st = acc._static
+    static_sc = [0] * st.sv.width
+    dyn_b, dyn_s = [], []
+    for b, sc in acc._base_scalar.items():
+        lane = st.index.get(b) if isinstance(b, tuple) else None
+        if lane is None:
+            dyn_b.append(codec.resolve_point(b))
+            dyn_s.append(sc)
+        else:
+            static_sc[lane] += sc
+    lazy = sum(isinstance(b, codec.LazyPoint) for b in acc._base_scalar)
+
+    def resolved():
+        return curve.msm_with_static(st.sv, static_sc, dyn_b, dyn_s)
+
+    profiling.reset()
+    profiling.enable()
+    try:
+        got = acc.total()
+        counts = {}
+        for r in profiling.records():
+            for k, v in (r.counts or {}).items():
+                counts[k] = counts.get(k, 0) + v
+    finally:
+        profiling.disable()
+        profiling.reset()
+    n_dec = pool.pts.shape[1]
+    check(codec.g1_to_bytes(got) == codec.g1_to_bytes(resolved()),
+          f"{what}: the final MSM read from the pool is the resolved "
+          f"route's point")
+    check((got is None) == verdict, f"{what}: verdict {verdict}")
+    check(counts.get("msm.resident") == lazy == n_dec
+          and counts.get("msm.uploaded") == len(dyn_b) - lazy,
+          f"{what}: msm.resident {counts.get('msm.resident')} (want {lazy}"
+          f" of {n_dec} decoded), msm.uploaded {counts.get('msm.uploaded')}"
+          f" (want {len(dyn_b) - lazy})")
+    res_ms, old_ms = cuda_ms(acc.total, 5), cuda_ms(resolved, 5)
+    print(f"{what}: {n_dec} decoded points; the final MSM reads {lazy} "
+          f"bases from the pool on the card and uploads "
+          f"{len(dyn_b) - lazy}; the resolved route's point "
+          f"({'accepted' if got is None else 'rejected'}); "
+          f"{res_ms:.2f} ms, resolved route {old_ms:.2f} ms (median of 5)",
+          flush=True)
+
+
 def phase_verifier(dev: torch.device, card: str):
     """The ELL=124 verifier path. Returns (launch counts over the two
     fixture verifies, the CRS, the fixture)."""
@@ -1557,6 +1638,9 @@ def phase_verifier(dev: torch.device, card: str):
     swapped[0], swapped[1] = swapped[1], swapped[0]
     check(not verify(pre, swapped, proof), "swapped post trackers rejected")
     print("tampered proofs rejected")
+    check_resident_msm(dev, crs, pre, post, proof, True, "ELL=124 verify")
+    check_resident_msm(dev, crs, pre, insts[1][1], proof, False,
+                       "ELL=124 verify beside another proof's post-trackers")
 
     warm_ms = cuda_ms(lambda: check(verify(*insts[0]), "warm verify"))
     kernels.reset_launches()
@@ -2136,7 +2220,7 @@ def check_recorded_kernels(calls: dict, names, where: str) -> dict:
         elif name == "msm_select_reduce":
             err = _affine_err(curve.to_affine_host(got),
                               curve.to_affine_host(want))
-        elif name == "strobe_challenge32":
+        elif name in ("strobe_challenge32", "decode_points"):
             err = 0 if all(map(torch.equal, got, want)) else 1
         else:
             err = _point_err(got, want)
@@ -2400,6 +2484,12 @@ def phase_ell(dev: torch.device, card: str, ell: int):
     bad = bytearray(proof)
     bad[-20] ^= 0x01           # inside the same-multiscalar scalar x
     check(not verify(post, bytes(bad)), f"ELL={ell} flipped byte rejected")
+    if ell == ELL_BIG:
+        check_resident_msm(dev, crs, pre, post, proof, True,
+                           f"ELL={ell} verify")
+        check_resident_msm(dev, crs, pre, post[1:] + post[:1], proof, False,
+                           f"ELL={ell} verify beside its rotated "
+                           f"post-trackers")
     dpost, dproof = counted("prove (device)", lambda: prove("device"))
     check(dproof == proof and [(t.r_g, t.k_r_g) for t in dpost]
           == [(t.r_g, t.k_r_g) for t in post],

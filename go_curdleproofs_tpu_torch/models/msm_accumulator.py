@@ -11,7 +11,9 @@ multiples table; the per-proof bases take one fresh table.
 Base keys are points: host Affine tuples by value, LazyPoints by blob. The
 two never compare equal, so a point appearing both ways takes two entries
 whose MSM terms sum to the same total. Scalars accumulate unreduced and
-possibly negative; digits reduce them mod r.
+possibly negative; digits reduce them mod r. The LazyPoints of one
+DecodePool reach the final MSM as rows of its device points (`pool.pts`):
+no host conversion or upload of a decoded point.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ import torch
 from ..ops import curve
 from ..utils import field_host as fh
 from ..utils import profiling
-from ..utils.codec import LazyPoint, point_is_infinity, resolve_point
+from ..utils.codec import LazyPoint, point_is_infinity
 from ..utils.field_host import Affine
 from ..utils.rand import Rand
 
@@ -77,33 +79,47 @@ class MsmAccumulator:
             self._bump(q, -alpha * coeff)
 
     def _split_static(self):
-        """(static-row scalars or None, dynamic bases, dynamic scalars).
-        Only host Affine tuples route to the static row."""
+        """(static-row scalars or None, dynamic bases, dynamic scalars, the
+        device points of the dynamic rows). Only host Affine tuples route
+        to the static row; the LazyPoints of the first pool met are rows of
+        its device points (`DecodePool.row`), those of any other pool
+        resolve to Affine."""
         st = self._static
         static_sc = [0] * (st.sv.width if st else 0)
-        dyn_b: List[Affine] = []
+        dyn_b: List[curve.Base] = []
         dyn_s: List[int] = []
         any_static = False
+        pool = None
         for b, s in self._base_scalar.items():
             lane = st.index.get(b) if (st and isinstance(b, tuple)) else None
             if lane is not None:
                 static_sc[lane] = (static_sc[lane] + s) % fh.R
                 any_static = True
+                continue
+            if isinstance(b, LazyPoint):
+                pool = pool or b.pool
+                row = b.pool.row(b.blob) if b.pool is pool else None
+                dyn_b.append(b.resolve() if row is None else row)
             else:
-                dyn_b.append(resolve_point(b))
-                dyn_s.append(s)
-        return (static_sc if any_static else None), dyn_b, dyn_s
+                dyn_b.append(b)
+            dyn_s.append(s)
+        return ((static_sc if any_static else None), dyn_b, dyn_s,
+                (pool.pts if pool else None))
+
+    def total(self) -> Affine:
+        """The one deduplicated MSM: the static row off its cached table,
+        the pool's points read on the device, host points uploaded."""
+        static_sc, dyn_b, dyn_s, resident = self._split_static()
+        if static_sc is not None:
+            return curve.msm_with_static(self._static.sv, static_sc, dyn_b,
+                                         dyn_s, resident=resident)
+        return curve.msm(dyn_b, dyn_s, device=self.device, resident=resident)
 
     @profiling.traced("final_msm")
     def verify(self) -> bool:
-        """One deduplicated MSM == identity. LazyPoint bases resolve here:
-        one batched decompression for every deferred point."""
+        """One deduplicated MSM == identity. The first LazyPoint base
+        materializes its pool here if nothing did before: one batched
+        decompression for every deferred point."""
         if not self._base_scalar:
             return True
-        static_sc, dyn_b, dyn_s = self._split_static()
-        if static_sc is not None:
-            total = curve.msm_with_static(self._static.sv, static_sc,
-                                          dyn_b, dyn_s)
-        else:
-            total = curve.msm(dyn_b, dyn_s, device=self.device)
-        return total is None
+        return self.total() is None

@@ -7,16 +7,23 @@ flags ask for, the on-curve flag and Scott's subgroup test [lambda]P ==
 phi(P) (ops/glv.py), then one fetch. Byte semantics match
 `codec.g1_from_bytes`, including its ValueErrors.
 
+The decoded points stay on the device as well, in Montgomery form
+(`Decoded.pts`, the kernel's second output), for the verifier's final MSM
+to read by row (models/msm_accumulator.py, `curve.msm_with_static`); the
+host builds the ints of a point only when it is read.
+
 A decode is one `decode` span (utils/profiling.py) with the children
-`parse`, `upload`, `fetch` and `convert`, and the counters
+`parse`, `upload` and `fetch`, and the counters
 `decode.points` (points decoded) and `decode.lanes` (point slots the
 kernel launches).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from collections import abc
+from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..utils import field_host as fh
@@ -63,14 +70,53 @@ def batch_subgroup_check(points: Sequence[Affine], *,
     return bool(ok[: len(pts)].all())
 
 
+class Decoded(abc.Sequence):
+    """What `batch_decompress` gives, blob by blob: the Affine point (None
+    for the infinity encoding), its ints built from the fetched words when
+    it is read. `pts` [3, n, 12] holds the n decoded points (the blobs
+    other than infinity, in blob order) as the planes X, Y, Z of
+    (x : y : 1) in Montgomery form on the device; `row(i)` is blob i's row
+    there (None for infinity)."""
+
+    def __init__(self, rows: List[int], xs: List[int], words: np.ndarray,
+                 pts: Optional[torch.Tensor]):
+        self._rows = rows           # blob -> row of xs / words / pts, or -1
+        self._xs = xs
+        self._words = words         # [n, 12] little-endian y words
+        self.pts = pts
+
+    def __len__(self) -> int:
+        return len(self._rows)
+
+    def row(self, i: int) -> Optional[int]:
+        r = self._rows[i]
+        return None if r < 0 else r
+
+    def __getitem__(self, i):
+        if isinstance(i, slice):
+            return [self[k] for k in range(*i.indices(len(self)))]
+        r = self._rows[i]
+        if r < 0:
+            return None
+        return (self._xs[r], int.from_bytes(self._words[r].tobytes(),
+                                            "little"))
+
+    def __eq__(self, other):
+        if isinstance(other, abc.Sequence):
+            return list(self) == list(other)
+        return NotImplemented
+
+    __hash__ = None
+
+
 @profiling.traced("decode")
 def batch_decompress(blobs: Sequence[bytes], *, device: torch.device,
-                     subgroup_check: bool = True) -> List[Affine]:
+                     subgroup_check: bool = True) -> Decoded:
     """Decode 48-byte compressed G1 points: host flag and canonicality
     parsing, then one upload of the x bytes, one `decode_points` launch
-    (sqrt + on-curve + y-select + subgroup) and one fetch."""
-    results: List[Affine] = [None] * len(blobs)
-    idxs: List[int] = []
+    (sqrt + on-curve + y-select + subgroup, and the points in Montgomery
+    form, left on the device) and one fetch of y and the flags."""
+    rows: List[int] = [-1] * len(blobs)
     xs: List[int] = []
     packed = bytearray()          # the x bytes, then a sign byte a point
     wants_largest = bytearray()
@@ -90,12 +136,12 @@ def batch_decompress(blobs: Sequence[bytes], *, device: torch.device,
             x = int.from_bytes(xb, "big")
             if x >= fh.P:
                 raise ValueError("x coordinate not canonical")
-            idxs.append(i)
+            rows[i] = len(xs)
             xs.append(x)
             packed += xb
             wants_largest.append(meta == _M_COMPRESSED_LARGEST)
     if not xs:
-        return results
+        return Decoded(rows, xs, np.zeros((0, fp.NWORDS), np.int32), None)
 
     n = len(xs)
     profiling.count("decode.points", n)
@@ -103,20 +149,13 @@ def batch_decompress(blobs: Sequence[bytes], *, device: torch.device,
     with profiling.span("upload"):
         packed += wants_largest
         dev = torch.frombuffer(packed, dtype=torch.uint8).to(device)
-    out = kernels.decode_points(dev[:kernels.XBYTES * n].view(n, -1),
-                                dev[kernels.XBYTES * n:])
+    out, pts = kernels.decode_points(dev[:kernels.XBYTES * n].view(n, -1),
+                                     dev[kernels.XBYTES * n:])
     with profiling.span("fetch"):
-        out = out.cpu()
-    with profiling.span("convert"):
-        words = out.numpy()
-        flags = words[:, fp.NWORDS]
-        raw = words[:, :fp.NWORDS].tobytes()
-        ys = [int.from_bytes(raw[48 * k:48 * k + 48], "little")
-              for k in range(n)]
+        words = out.cpu().numpy()
+    flags = words[:, fp.NWORDS]
     if not (flags & kernels.ON_CURVE).all():
         raise ValueError("point not on curve")
     if subgroup_check and not (flags & kernels.IN_SUBGROUP).all():
         raise ValueError("point not in prime-order subgroup")
-    for i, x, y in zip(idxs, xs, ys):
-        results[i] = (x, y)
-    return results
+    return Decoded(rows, xs, words[:, :fp.NWORDS], pts)

@@ -394,7 +394,12 @@ point_x16_add_kernel(const Fp* ax, const Fp* ay, const Fp* az,
 // bits cleared, x < p, both checked on the host) and the sign wl[i] (1: the
 // lexicographically largest y), out[i] is 13 words: the canonical y,
 // little-endian, then the flags, bit 0 on the curve (x^3 + 4 is a square)
-// and bit 1 in the prime-order subgroup ([lambda]P == phi(P)).
+// and bit 1 in the prime-order subgroup ([lambda]P == phi(P)). pts holds
+// the point itself for the verifier's final MSM, in the layout of three
+// [n] planes of Fp: pts[0][i] = x R, pts[1][i] = y R, pts[2][i] = R (the
+// projective (x : y : 1) in Montgomery form), each written by one lane of
+// the point's group as the subgroup test loads it, so the MSM reads the
+// decoded points where they are and the host converts none of them.
 //
 // Replaces the chain of ~420 launches of plain torch ops and four kernels
 // that did the same (the sqrt ladder, y's sign, a 33-window scalar
@@ -482,7 +487,7 @@ __device__ __forceinline__ void coop_mul_z(GroupMem& m, int lane,
 __global__ void __launch_bounds__(kDecodeThreads)
 decode_points_kernel(const uint8_t* __restrict__ xb,
                      const uint8_t* __restrict__ wl,
-                     int32_t* __restrict__ out, int n) {
+                     int32_t* __restrict__ out, Fp* __restrict__ pts, int n) {
   __shared__ GroupMem mem[kDecodePoints];
   __shared__ Fp base[kDecodePoints][2];  // x and y of P, Montgomery form
   __shared__ uint32_t table[kPowEntries * curdle::NW * kDecodePoints];
@@ -530,12 +535,14 @@ decode_points_kernel(const uint8_t* __restrict__ xb,
   }
   __syncwarp(mask);
 
-  // T = [kZ]P, then [kZ]T = [z^2]P, then + (-P): S = [lambda]P
+  // T = [kZ]P, then [kZ]T = [z^2]P, then + (-P): S = [lambda]P; lane c
+  // also stores coordinate c of P
   if (lane < 3) {
     Fp v;
     if (lane == 2) curdle::fp_set_one(v); else v = pt[lane];
     m.acc[lane] = v;
     m.q[lane] = v;
+    pts[(size_t)lane * n + i] = v;
   }
   __syncwarp(mask);
   coop_mul_z(m, lane, mask);
@@ -812,13 +819,14 @@ int curdle_point_x16_add_select(const void* ax, const void* ay, const void* az,
   return (int)cudaGetLastError();
 }
 
-// xb: [n, 48] bytes, wl: [n] bytes, out: [n, 13] words.
-int curdle_decode_points(const void* xb, const void* wl, void* out, int n,
-                         void* stream) {
+// xb: [n, 48] bytes, wl: [n] bytes, out: [n, 13] words, pts: [3, n, 12]
+// words.
+int curdle_decode_points(const void* xb, const void* wl, void* out,
+                         void* pts, int n, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   const int blocks = (n + kDecodePoints - 1) / kDecodePoints;
   decode_points_kernel<<<blocks, kDecodeThreads, 0, (cudaStream_t)stream>>>(
-      (const uint8_t*)xb, (const uint8_t*)wl, (int32_t*)out, n);
+      (const uint8_t*)xb, (const uint8_t*)wl, (int32_t*)out, (Fp*)pts, n);
   return (int)cudaGetLastError();
 }
 

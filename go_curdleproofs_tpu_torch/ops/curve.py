@@ -39,16 +39,20 @@ Spans (utils/profiling.py): `msm` around each host-facing MSM and
 of a call's scalars, with its counters `recode.scalars`, the scalars
 recoded, pad lanes included, and `recode.on_card`, those the kernel
 recoded: all of them on a CUDA device, none on the CPU), `upload`
-(`from_affine_host`, and the scalars' words after `recode`), `fetch`
+(`affine_planes`, and the scalars' words after `recode`), `fetch`
 (the blocking copy back) and `convert` (host normalisation of what came
-back), and the counters `msm.terms` (bases with a non-zero scalar) and
-`msm.lanes` (base lanes launched: rows x padded width); `expand` around
+back), and the counters `msm.terms` (bases with a non-zero scalar),
+`msm.lanes` (base lanes launched: rows x padded width), and in `msm` and
+`msm_with_static` `msm.resident` (fresh-table bases read from device
+points by row: a decode's, which the verifier's final MSM passes) and
+`msm.uploaded` (host Affine bases converted and uploaded); `expand` around
 `FoldedBases`' scalar-side folding and `fold` around `StackedVec.fold`.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import numpy as np
 import torch
@@ -125,12 +129,22 @@ def _unstack_points(pv: PointVec) -> List[PointVec]:
 # -- host <-> device ------------------------------------------------------------
 
 @profiling.traced("upload")
+def affine_planes(pts: Sequence[Affine], *,
+                  device: torch.device) -> torch.Tensor:
+    """Host affine points -> [3, n, 12]: the planes X, Y, Z of each point
+    (infinity -> (0:1:0)), Montgomery conversion on the host, one upload."""
+    n = len(pts)
+    return fp.from_ints([(pt[0] if pt else 0) for pt in pts]
+                        + [(pt[1] if pt else 1) for pt in pts]
+                        + [(1 if pt else 0) for pt in pts],
+                        device).view(3, n, fp.NWORDS)
+
+
 def from_affine_host(pts: Sequence[Affine], *,
                      device: torch.device) -> PointVec:
-    """Host affine points -> [n] PointVec (infinity -> (0:1:0))."""
-    return PointVec(fp.from_ints([(pt[0] if pt else 0) for pt in pts], device),
-                    fp.from_ints([(pt[1] if pt else 1) for pt in pts], device),
-                    fp.from_ints([(1 if pt else 0) for pt in pts], device))
+    """Host affine points -> [n] PointVec (infinity -> (0:1:0)): its
+    coordinates are the planes of one `affine_planes` upload."""
+    return PointVec(*affine_planes(pts, device=device))
 
 
 def to_affine_host(p: PointVec) -> List[Affine]:
@@ -464,6 +478,7 @@ def _pad_pow2(n: int, minimum: int = 8) -> int:
 
 
 MsmTerm = Tuple[int, Sequence[int], int]      # (base row, scalars, offset)
+Base = Union[Affine, int]        # a host point, or a row of device points
 
 
 class StackedVec:
@@ -691,45 +706,77 @@ def _dynamic_rows(scalars: Sequence[int], n: int) -> List[ScalarRow]:
     return [(sc[i * w:(i + 1) * w], 0, w) for i in range(k)]
 
 
-def _dynamic_sums(points: Sequence[Affine], digits: torch.Tensor,
-                  device: torch.device) -> PointVec:
-    """[1, W] window sums of the points over a fresh table, their digits
-    recoded from `_dynamic_rows`: each row's sums in one wide-phase launch,
-    added pointwise."""
+def _dynamic_bases(points: Sequence[Base], resident: Optional[torch.Tensor],
+                   device: torch.device) -> PointVec:
+    """The [k, w] bases of an n-base MSM's fresh table (`_dynamic_layout`),
+    infinity in the pad lanes. An int in `points` is a row of `resident`
+    ([3, m, 12] planes of points already on the device: a decode's,
+    `codec_batch.Decoded.pts`), gathered there; only the host's Affine
+    points are converted and uploaded (`affine_planes`). Counters
+    `msm.resident` and `msm.uploaded` count the two kinds."""
     k, w = _dynamic_layout(len(points))
-    pts = list(points) + [None] * (k * w - len(points))
-    sv = StackedVec.from_affine([pts[i * w:(i + 1) * w] for i in range(k)],
-                                device=device, pad_to=w)
+    m = 0 if resident is None else resident.shape[1]
+    host, idx = [], []           # host point i is row m + i, then one pad
+    for p in points:
+        if not isinstance(p, int):
+            idx.append(m + len(host))
+            host.append(p)
+        elif 0 <= p < m:
+            idx.append(p)
+        else:
+            raise ValueError(f"resident row {p} outside [0, {m})")
+    idx += [m + len(host)] * (k * w - len(points))
+    profiling.count("msm.resident", len(points) - len(host))
+    profiling.count("msm.uploaded", len(host))
+    planes = affine_planes(host + [None], device=device)
+    if m:
+        planes = torch.cat([resident, planes], dim=1)
+    planes = planes.index_select(1, halflimb.upload(idx, torch.long, device))
+    return PointVec(*(t.view(k, w, fp.NWORDS) for t in planes))
+
+
+def _dynamic_sums(bases: PointVec, digits: torch.Tensor) -> PointVec:
+    """[1, W] window sums of [k, w] bases (`_dynamic_bases`) over a fresh
+    table, their digits recoded from `_dynamic_rows`: each row's sums in
+    one wide-phase launch, added pointwise."""
+    sv = StackedVec(bases)
     return _sum_rows(msm_rows_windows_from_table(
-        sv.table(), digits.reshape(k, 2 * w, NUM_WINDOWS), list(range(k))))
+        sv.table(), digits.reshape(sv.k, 2 * sv.width, NUM_WINDOWS),
+        list(range(sv.k))))
 
 
-def _dynamic_windows(points: Sequence[Affine], scalars: Sequence[int],
-                     device: torch.device) -> PointVec:
+def _dynamic_windows(points: Sequence[Base], scalars: Sequence[int],
+                     device: torch.device,
+                     resident: Optional[torch.Tensor] = None) -> PointVec:
     """[1, W] window sums of <scalars, points> over a fresh table."""
     digits = recode(_dynamic_rows(scalars, len(points)), device)
-    return _dynamic_sums(points, digits, device)
+    return _dynamic_sums(_dynamic_bases(points, resident, device), digits)
 
 
 @profiling.traced("msm")
-def msm(points: Sequence[Affine], scalars: Sequence[int], *,
-        device: torch.device) -> Affine:
-    """<scalars, points> (scalars taken mod r)."""
+def msm(points: Sequence[Base], scalars: Sequence[int], *,
+        device: torch.device,
+        resident: Optional[torch.Tensor] = None) -> Affine:
+    """<scalars, points> (scalars taken mod r). A point is a host Affine or
+    an int, a row of the device points `resident` (`_dynamic_bases`)."""
     if len(points) != len(scalars):
         raise ValueError("msm: len(points) != len(scalars)")
     if not points:
         return None
-    return to_affine_host(horner(_dynamic_windows(points, scalars, device)))[0]
+    return to_affine_host(horner(_dynamic_windows(points, scalars, device,
+                                                  resident)))[0]
 
 
 @profiling.traced("msm")
 def msm_with_static(static_sv: StackedVec, static_scalars: Sequence[int],
-                    points: Sequence[Affine],
-                    scalars: Sequence[int]) -> Affine:
+                    points: Sequence[Base], scalars: Sequence[int], *,
+                    resident: Optional[torch.Tensor] = None) -> Affine:
     """<static_scalars, static_sv row 0> + <scalars, points>: the static
     row's window sums off its cached table, the dynamic points' off a fresh
     one, added pointwise, one Horner, one fetch. The static row's scalars
-    and the dynamic ones are recoded in one launch."""
+    and the dynamic ones are recoded in one launch. A dynamic point is a
+    host Affine or an int, a row of the device points `resident`
+    (`_dynamic_bases`)."""
     if len(points) != len(scalars):
         raise ValueError("msm_with_static: len(points) != len(scalars)")
     device = static_sv.pv.x.device
@@ -739,7 +786,8 @@ def msm_with_static(static_sv: StackedVec, static_scalars: Sequence[int],
     acc = msm_rows_windows_from_table(
         static_sv.table(), digits[:n2].reshape(1, n2, NUM_WINDOWS), [0])
     if points:
-        acc = add(acc, _dynamic_sums(points, digits[n2:], device))
+        acc = add(acc, _dynamic_sums(
+            _dynamic_bases(points, resident, device), digits[n2:]))
     return to_affine_host(horner(acc))[0]
 
 

@@ -193,7 +193,7 @@ def _load() -> SimpleNamespace:
             fns.point_double.argtypes = [vp] * 6 + [i64, vp]
             fns.point_x16_add.argtypes = [vp] * 9 + [i32, vp]
             fns.point_x16_add_select.argtypes = [vp] * 10 + [i32] * 3 + [vp]
-            fns.decode_points.argtypes = [vp, vp, vp, i32, vp]
+            fns.decode_points.argtypes = [vp, vp, vp, vp, i32, vp]
             fns.glv_recode.argtypes = [vp, vp, i32, vp]
             fns.fr_mont_mul.argtypes = [vp, vp, vp, i64, i32, i32, vp]
             fns.fr_pow_fixed.argtypes = [
@@ -635,17 +635,22 @@ def decode_points_plain(xb: torch.Tensor, wl: torch.Tensor) -> torch.Tensor:
               & (fp.mul_plain(y, s.z) == s.y).all(-1))
     flags = (on_curve.to(torch.int32) * ON_CURVE
              | in_sub.to(torch.int32) * IN_SUBGROUP)
-    return torch.cat([y_out, flags[:, None]], dim=-1)
+    return (torch.cat([y_out, flags[:, None]], dim=-1),
+            torch.stack([x, y, one]))
 
 
-def decode_points(xb: torch.Tensor, wl: torch.Tensor) -> torch.Tensor:
+def decode_points(xb: torch.Tensor, wl: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The batched decompression of n G1 points in one launch. xb: [n, 48]
     uint8, each point's big-endian x with the three flag bits cleared
     (x < p); wl: [n] uint8, 1 where the point's y is the lexicographically
-    largest root. Returns [n, 13] int32: the canonical y (the root of
-    x^3 + 4 that wl asks for) as 12 little-endian words, then the flags
-    ON_CURVE (x^3 + 4 is a square) and IN_SUBGROUP ([lambda]P == phi(P)),
-    the second meaningful only with the first."""
+    largest root. Returns (out, pts): out [n, 13] int32, the canonical y
+    (the root of x^3 + 4 that wl asks for) as 12 little-endian words, then
+    the flags ON_CURVE (x^3 + 4 is a square) and IN_SUBGROUP ([lambda]P ==
+    phi(P)), the second meaningful only with the first; pts [3, n, 12]
+    int32, the points as the planes X, Y, Z of (x : y : 1) in Montgomery
+    form (ops/fp.py), ready for a device MSM (meaningful where both flags
+    are set)."""
     if xb.ndim != 2 or xb.shape[1] != XBYTES:
         raise ValueError(f"decode_points: x bytes must be [n, {XBYTES}], got "
                          f"{tuple(xb.shape)}")
@@ -656,13 +661,14 @@ def decode_points(xb: torch.Tensor, wl: torch.Tensor) -> torch.Tensor:
         return decode_points_plain(xb, wl)
     n = xb.shape[0]
     out = torch.empty((n, DECODE_WORDS), dtype=torch.int32, device=xb.device)
+    pts = torch.empty((3, n, fp.NWORDS), dtype=torch.int32, device=xb.device)
     lib = _load()
     with torch.cuda.device(xb.device):
         rc = lib.decode_points(xb.data_ptr(), wl.data_ptr(), out.data_ptr(),
-                               n, _stream(xb.device))
+                               pts.data_ptr(), n, _stream(xb.device))
     _check(rc, "decode_points")
     launches["decode_points"] += 1
-    return out
+    return out, pts
 
 
 # -- the GLV recode of host scalars -----------------------------------------------

@@ -22,7 +22,7 @@ from __future__ import annotations
 import ctypes
 import io
 import struct
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
@@ -175,23 +175,24 @@ class LazyPoint:
 
     The verifier only ever needs most points as (a) transcript bytes —
     the blob itself — and (b) MSM-accumulator dict keys — blob equality IS
-    point equality for canonical encodings. Actual coordinates are needed
-    only when a point enters a device MSM or a host group op; `resolve()`
-    materializes the WHOLE pool then (one device sqrt/subgroup program +
-    one fetch for every pooled point of a verification or a batch)."""
+    point equality for canonical encodings. The final MSM reads the point
+    on the device, by its row of `pool.pts`; only a host group op needs
+    its ints (`resolve()`). The first of either materializes the WHOLE
+    pool (one device sqrt/subgroup program + one fetch for every pooled
+    point of a verification or a batch)."""
 
-    __slots__ = ("blob", "_pool")
+    __slots__ = ("blob", "pool")
 
     def __init__(self, blob: bytes, pool: "DecodePool"):
         self.blob = blob
-        self._pool = pool
+        self.pool = pool
 
     @property
     def is_infinity(self) -> bool:
         return (self.blob[0] & _M_MASK) == _M_COMPRESSED_INFINITY
 
     def resolve(self) -> Affine:
-        return self._pool.get(self.blob)
+        return self.pool.get(self.blob)
 
     def __eq__(self, other):
         # NOTE: no LazyPoint == tuple comparison — hash(LazyPoint) is
@@ -233,11 +234,14 @@ def point_bytes(p) -> bytes:
 class DecodePool:
     """Blob-deduplicated deferred decode set; ONE batched decompression on
     `device` (sqrt + on-curve + subgroup, ops/codec_batch.py) for
-    everything at first resolve."""
+    everything at first resolve. The decoded points stay on the device
+    (`pts`), where the verifier's final MSM reads them by `row`; the host
+    builds the ints of the few points it resolves."""
 
     def __init__(self, device: torch.device):
         self.device = device
-        self._blobs: Dict[bytes, Affine] = {}
+        self._blobs: Dict[bytes, int] = {}      # blob -> index in the decode
+        self._decoded = None
         self._done = False
 
     def add(self, blob: bytes) -> LazyPoint:
@@ -261,23 +265,33 @@ class DecodePool:
         if blob not in self._blobs:
             if self._done:
                 raise ValueError("DecodePool already materialized")
-            self._blobs[blob] = False
+            self._blobs[blob] = len(self._blobs)
         return LazyPoint(blob, self)
 
     def materialize(self) -> None:
         if self._done:
             return
         from ..ops import codec_batch
-        blobs = list(self._blobs.keys())
-        pts = codec_batch.batch_decompress(blobs, device=self.device)
-        for b, pt in zip(blobs, pts):
-            self._blobs[b] = pt
+        self._decoded = codec_batch.batch_decompress(list(self._blobs),
+                                                     device=self.device)
         self._done = True
 
     def get(self, blob: bytes) -> Affine:
-        if not self._done:
-            self.materialize()
-        return self._blobs[blob]
+        self.materialize()
+        return self._decoded[self._blobs[blob]]
+
+    @property
+    def pts(self) -> Optional[torch.Tensor]:
+        """[3, n, 12]: the n decoded points (every blob but the infinity
+        encoding) as the planes X, Y, Z in Montgomery form on `device`;
+        None when the pool holds no such point."""
+        self.materialize()
+        return self._decoded.pts
+
+    def row(self, blob: bytes) -> Optional[int]:
+        """The blob's row of `pts`; None for the infinity encoding."""
+        self.materialize()
+        return self._decoded.row(self._blobs[blob])
 
 
 class Decoder:

@@ -9,7 +9,7 @@ import torch
 from go_curdleproofs_tpu.ops import codec_batch as jcodec_batch
 from go_curdleproofs_tpu.utils import codec as hcodec
 from go_curdleproofs_tpu.utils import field_host as fh
-from go_curdleproofs_tpu_torch.ops import codec_batch
+from go_curdleproofs_tpu_torch.ops import codec_batch, fp
 from go_curdleproofs_tpu_torch.utils import codec
 
 torch.set_num_threads(1)
@@ -204,12 +204,15 @@ def test_decode_points_flags_and_words():
     xb = torch.tensor([[b[0] & 0x1F, *b[1:48]] for b in blobs],
                       dtype=torch.uint8)
     wl = torch.tensor([b[0] >> 5 == 0b101 for b in blobs], dtype=torch.uint8)
-    out = kernels.decode_points(xb, wl)
+    out, planes = kernels.decode_points(xb, wl)
     assert out.shape == (6, kernels.DECODE_WORDS) and out.dtype == torch.int32
     words = out.numpy()
     assert list(words[:, 12]) == [3, 3, 3, 1, 1, 0]
     for row, p in zip(words, pts):
         assert int.from_bytes(row[:12].tobytes(), "little") == p[1]
+    assert planes.shape == (3, 6, 12) and planes.dtype == torch.int32
+    assert [fp.to_ints(t)[:5] for t in planes] == [
+        [p[0] for p in pts], [p[1] for p in pts], [1] * 5]
     assert kernels.decode_slots(6) == 8 and kernels.decode_slots(8) == 8
 
 

@@ -207,6 +207,7 @@ def test_recode_counts_on_a_traced_msm():
         for k, v in (r.counts or {}).items():
             counts[r.name, k] = counts.get((r.name, k), 0) + v
     assert counts == {("msm", "msm.lanes"): 8, ("msm", "msm.terms"): 3,
+                      ("msm", "msm.resident"): 0, ("msm", "msm.uploaded"): 5,
                       ("recode", "recode.scalars"): 8,
                       ("recode", "recode.on_card"): 0}
     # the host's part alone: the words' upload and the launch follow it

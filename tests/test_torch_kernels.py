@@ -597,7 +597,8 @@ def test_decode_points_plain_matches_jax_decode_program():
     idx = [0, 3, 11, 19, 20, 27, 4, 1]        # every kind, both signs
     xb, wl = xb[idx].contiguous(), wl[idx].contiguous()
     flags, ys = [flags[i] for i in idx], [ys[i] for i in idx]
-    out = kernels.decode_points(xb, wl).numpy()
+    out, pts = kernels.decode_points(xb, wl)
+    out = out.numpy()
     xs = [int.from_bytes(bytes(r.tolist()), "big") for r in xb]
     y_dig, ok = jcodec_batch._decode_program(
         jfield.from_ints(xs), jnp.asarray(wl.numpy().astype(bool)),
@@ -610,6 +611,12 @@ def test_decode_points_plain_matches_jax_decode_program():
             got = int.from_bytes(row[:12].tobytes(), "little")
             assert got == y == sum(int(v) << (8 * j)
                                    for j, v in enumerate(yd))
+    # the points' planes: (x : y : 1) in Montgomery form, where on the curve
+    on = [i for i, f in enumerate(flags) if f is not None]
+    assert tuple(pts.shape) == (3, 8, 12) and pts.dtype == torch.int32
+    assert curve.to_affine_host(curve.PointVec(*pts[:, on])) == [
+        (xs[i], ys[i]) for i in on]
+    assert fp.to_ints(pts[2]) == [1] * 8
 
 
 def test_decode_points_checks_inputs_and_never_falls_back():
@@ -959,12 +966,17 @@ def test_cuda_decode_points_matches_plain(cuda_device, n):
     rng = np.random.default_rng(n)
     xb, wl, flags, ys = _decode_case(rng, n)
     xb, wl = xb.to(cuda_device), wl.to(cuda_device)
-    got = kernels.decode_points(xb, wl)
-    assert torch.equal(got, kernels.decode_points_plain(xb, wl))
+    got, pts = kernels.decode_points(xb, wl)
+    want, want_pts = kernels.decode_points_plain(xb, wl)
+    assert torch.equal(got, want) and torch.equal(pts, want_pts)
     host = got.cpu().numpy()
     for row, f, y in zip(host, flags, ys):
         assert f is None and row[12] & 1 == 0 or row[12] == f
         assert y is None or int.from_bytes(row[:12].tobytes(), "little") == y
+    on = [i for i, y in enumerate(ys) if y is not None][:64]
+    xs = [int.from_bytes(bytes(r.tolist()), "big") for r in xb[on].cpu()]
+    assert curve.to_affine_host(curve.PointVec(*pts[:, on])) == [
+        (x, ys[i]) for x, i in zip(xs, on)]
 
 
 @pytest.mark.cuda

@@ -228,9 +228,9 @@ def test_a_whisk_verify_is_one_request_with_its_layers(spans, monkeypatch):
         seen["blobs"] = list(blobs)
         return decompress(blobs, **kw)
 
-    def final(sv, st, points, scalars):
+    def final(sv, st, points, scalars, **kw):
         seen["msm"] = (sv.width, list(st), list(points), list(scalars))
-        return with_static(sv, st, points, scalars)
+        return with_static(sv, st, points, scalars, **kw)
 
     monkeypatch.setattr(codec_batch, "batch_decompress", decoding)
     monkeypatch.setattr(curve, "msm_with_static", final)
@@ -250,7 +250,7 @@ def test_a_whisk_verify_is_one_request_with_its_layers(spans, monkeypatch):
     assert sum(r.name == "fetch" for r in recs) == 2
     decode = next(r for r in recs if r.name == "decode")
     assert sorted(r.name for r in recs if r.parent == decode.id) == [
-        "convert", "fetch", "parse", "upload"]
+        "fetch", "parse", "upload"]
     counts = {}
     for r in recs:
         for k, v in (r.counts or {}).items():
@@ -268,6 +268,11 @@ def test_a_whisk_verify_is_one_request_with_its_layers(spans, monkeypatch):
     assert counts["msm.terms"] == sum(s % fh.R != 0
                                       for s in static + dyn_scalars)
     assert 0 < counts["msm.terms"] <= counts["msm.lanes"]
+    # the decoded points reach the final MSM as rows of the pool's device
+    # points; only the host-formed bases are uploaded
+    rows = [p for p in dyn_points if isinstance(p, int)]
+    assert counts["msm.resident"] == len(rows) == len(set(rows)) > 0
+    assert counts["msm.uploaded"] == len(dyn_points) - len(rows) > 0
 
 
 def test_spans_at_the_curve_call_sites(spans):
